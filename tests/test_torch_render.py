@@ -1,0 +1,224 @@
+"""nerfnav_tpu_torch rays, compositing, rounds renderer and render_full vs
+the JAX package's, on the CPU, on the same params and occupancy.
+
+fp32 paths (mlp_backend "xla", float32 tables) must agree within 1e-5. The
+fused-MLP path agrees within 2e-2: the JAX side runs the Pallas kernel in
+interpret mode and the port its plain version, and the bf16 re-rounding of
+hidden activations under a different f32 summation order can move an
+activation by one bf16 step.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfnav_tpu.data import rays as jrays
+from nerfnav_tpu.models import network as jnet
+from nerfnav_tpu.models import renderer as jrend
+from nerfnav_tpu.models.occupancy import OccupancyConfig as JOccCfg
+from nerfnav_tpu.ops import marching as jm
+from nerfnav_tpu.training import Trainer as JTrainer, TrainerOptions as JOpts
+from nerfnav_tpu_torch.data import rays as trays
+from nerfnav_tpu_torch.models import network as tnet
+from nerfnav_tpu_torch.models import renderer as trend
+from nerfnav_tpu_torch.models.occupancy import OccupancyConfig as TOccCfg
+from nerfnav_tpu_torch.ops import marching as tm
+from nerfnav_tpu_torch.training.checkpoint import occupancy_from_numpy, params_from_numpy
+from nerfnav_tpu_torch.training.trainer import Trainer as TTrainer, TrainerOptions as TOpts
+from test_torch_march import camera_rays, shell_occupancy
+
+torch.set_num_threads(1)
+
+POSE = np.eye(4, dtype=np.float32)
+POSE[:3, 3] = [0.02, -0.01, -1.6]
+
+
+def _net_cfg(**kw):
+    base = dict(bound=1.0, grid_levels=2, grid_level_dim=8, grid_log2_hashmap_size=10,
+                grid_max_resolution=32, grid_layout="cell", density_scale=40.0)
+    base.update(kw)
+    return base
+
+
+def _params(cfg_kw, seed=0):
+    pj = jnet.init_network(jax.random.PRNGKey(seed), jnet.NetworkConfig(**cfg_kw))
+    pn = jax.tree_util.tree_map(np.asarray, pj)
+    return pj, params_from_numpy(pn, device="cpu")
+
+
+def test_tile_order_exact():
+    for h, w in ((64, 64), (100, 70), (8, 130)):
+        pj, ij = jrays.tile_order(h, w, 64)
+        pt, it = trays.tile_order(h, w, 64)
+        np.testing.assert_array_equal(pt, pj)
+        np.testing.assert_array_equal(it, ij)
+
+
+def test_rays_match():
+    intr = np.asarray([30.0, 28.0, 15.5, 17.0], np.float32)
+    rng = np.random.default_rng(0)
+    pose = POSE.copy()
+    pose[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    rj = jrays.get_all_rays(jnp.asarray(pose), jnp.asarray(intr), 24, 20)
+    rt = trays.get_all_rays(torch.as_tensor(pose), torch.as_tensor(intr), 24, 20)
+    i = rng.uniform(0, 20, 50).astype(np.float32)
+    j = rng.uniform(0, 24, 50).astype(np.float32)
+    off = np.asarray([0.25, -0.5], np.float32)
+    pj = jrays.rays_from_pixels(jnp.asarray(pose), jnp.asarray(intr), jnp.asarray(i),
+                                jnp.asarray(j), offset=jnp.asarray(off))
+    pt = trays.rays_from_pixels(torch.as_tensor(pose), torch.as_tensor(intr),
+                                torch.as_tensor(i), torch.as_tensor(j),
+                                offset=torch.as_tensor(off))
+    for a, b in ((rj, rt), (pj, pt)):
+        for k in ("rays_o", "rays_d"):
+            np.testing.assert_allclose(b[k].numpy(), np.asarray(a[k]), rtol=0, atol=1e-5)
+
+
+def test_near_far_and_composite():
+    rng = np.random.default_rng(2)
+    o, d = camera_rays(8, 1.0)
+    aabb = np.asarray([-1, -1, -1, 1, 1, 1], np.float32)
+    nj, fj = jrend.near_far_from_aabb(jnp.asarray(o), jnp.asarray(d), jnp.asarray(aabb))
+    nt, ft = trend.near_far_from_aabb(torch.as_tensor(o), torch.as_tensor(d),
+                                      torch.as_tensor(aabb))
+    np.testing.assert_allclose(nt.numpy(), np.asarray(nj), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=0, atol=1e-5)
+    sig = rng.uniform(0, 30, (16, 12)).astype(np.float32)
+    rgb = rng.uniform(0, 1, (16, 12, 3)).astype(np.float32)
+    dz = rng.uniform(0.001, 0.05, (16, 12)).astype(np.float32)
+    z = np.cumsum(dz, axis=1)
+    outj = jrend.composite(*map(jnp.asarray, (sig, rgb, dz, z)), 2.0)
+    outt = trend.composite(*map(torch.as_tensor, (sig, rgb, dz, z)), 2.0)
+    for a, b in zip(outj, outt):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shade_order,round_compact", [("ray", 4), ("depth", 4),
+                                                       ("ray", 0)])
+def test_rounds_renderer_fp32(shade_order, round_compact, monkeypatch):
+    """render_rays_grid_rounds, xla fp32 field: image/depth within 1e-5.
+
+    The JAX renderer runs jitted, where XLA contracts multiply-adds into FMAs
+    and can move a march sample across a cell boundary. Both renderers
+    therefore shade the same march: the port's, which test_torch_march.py
+    holds bit for bit against the JAX march run op by op."""
+    kw = _net_cfg()
+    pj, pt = _params(kw)
+    occ, _ = shell_occupancy(32, 1)
+    mkw = dict(bound=1.0, grid_size=32, max_steps=256, samples_per_ray=16,
+               min_near=0.05, coarse_segments=12, coarse_anchors=2)
+    o, d = camera_rays(16, 1.0, focal=20.0)
+    args = dict(bg_color=1.0, round_samples=4, round_compact=round_compact,
+                shade_order=shade_order)
+    occ_j = {k: jnp.asarray(v) for k, v in occ.items()}
+    occ_t = occupancy_from_numpy(occ, device="cpu")
+    m_t = tm.march(torch.as_tensor(o), torch.as_tensor(d), occ_t, tm.MarchConfig(**mkw))
+    m_j = {k: jnp.asarray(v.numpy()) for k, v in m_t.items()}
+    monkeypatch.setattr(jm, "march", lambda *a, **k: m_j)
+    field_j = jrend.make_field(pj, jnet.NetworkConfig(**kw))
+    oj = jax.jit(lambda o_j, d_j: jrend.render_rays_grid_rounds(
+        field_j, occ_j, jm.MarchConfig(**mkw), o_j, d_j, **args))(
+        jnp.asarray(o), jnp.asarray(d))
+    ot = trend.render_rays_grid_rounds(
+        trend.make_field(pt, tnet.NetworkConfig(**kw)),
+        occ_t, tm.MarchConfig(**mkw), torch.as_tensor(o), torch.as_tensor(d), **args)
+    img = np.asarray(oj["image"])
+    assert (img < 0.5).mean() > 0.05  # opaque geometry in view
+    for k in ("image", "depth", "weights_sum"):
+        np.testing.assert_allclose(ot[k].numpy(), np.asarray(oj[k]), rtol=0, atol=1e-5)
+
+
+def _trainers(tmp_path, cfg_kw, bound, opt_kw, hw=16):
+    """A JAX Trainer and its port on the same params and shell occupancy."""
+    grid = 32
+    cascades = 1 + int(np.ceil(np.log2(bound)))
+    occ, _ = shell_occupancy(grid, cascades)
+    mkw = dict(bound=bound, grid_size=grid, max_steps=256, samples_per_ray=8,
+               min_near=0.05)
+    rcfg_kw = dict(num_steps=16, upsample_steps=0, min_near=0.05, max_ray_batch=128)
+    pj, pt = _params(cfg_kw)
+    tj = JTrainer(jnet.NetworkConfig(**cfg_kw), jrend.RenderConfig(**rcfg_kw),
+                  JOpts(name="port", workspace=str(tmp_path),
+                        use_checkpoint="scratch", **opt_kw),
+                  params=pj, occupancy_cfg=JOccCfg(bound=bound, grid_size=grid),
+                  march_cfg=jm.MarchConfig(**mkw))
+    tj.state = tj._init_state(1)
+    st = dict(tj.state.occupancy)
+    st.update({k: jnp.asarray(v) for k, v in occ.items()})
+    tj.state = tj.state._replace(occupancy=st)
+    tj._occ_version += 1
+    tt = TTrainer(tnet.NetworkConfig(**cfg_kw), trend.RenderConfig(**rcfg_kw),
+                  TOpts(**opt_kw), params=pt,
+                  occupancy_cfg=TOccCfg(bound=bound, grid_size=grid),
+                  march_cfg=tm.MarchConfig(**mkw),
+                  occupancy=occupancy_from_numpy(occ, device="cpu"), device="cpu")
+    intr = np.asarray([hw * 1.4, hw * 1.4, hw / 2, hw / 2], np.float32)
+    pose = POSE.copy()
+    pose[2, 3] *= bound
+    return tj, tt, pose, intr
+
+
+def test_render_full_xla_fp32(tmp_path):
+    """Trainer.render_full, xla fp32 field and tables, bound 1, beam off."""
+    tj, tt, pose, intr = _trainers(
+        tmp_path, _net_cfg(), 1.0, dict(eval_beam=1, eval_table_dtype="float32"))
+    ij, dj = tj.render_full(tj.params, pose, intr, 16, 16)
+    it, dt = tt.render_full(tt.params, pose, intr, 16, 16)
+    assert tt._ladder_plan == tj._ladder_plan
+    assert (np.asarray(ij) < 0.5).mean() > 0.05
+    np.testing.assert_allclose(it.numpy(), np.asarray(ij), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0, atol=1e-5)
+
+
+def test_render_full_fused_beam8(tmp_path):
+    """Trainer.render_full on the -O --ff configuration: fused MLP, bf16
+    tables, bound 2, eval_beam 8 (within 2e-2, see the module docstring)."""
+    tj, tt, pose, intr = _trainers(
+        tmp_path, _net_cfg(bound=2.0, mlp_backend="fused"), 2.0, dict(eval_beam=8))
+    ij, dj = tj.render_full(tj.params, pose, intr, 16, 16)
+    it, dt = tt.render_full(tt.params, pose, intr, 16, 16)
+    assert tt._ladder_plan == tj._ladder_plan
+    assert "blocks_coarse_dilated" in tt._beamed_occupancy(tt.occupancy)
+    assert (np.asarray(ij) < 0.5).mean() > 0.05
+    np.testing.assert_allclose(it.numpy(), np.asarray(ij), rtol=0, atol=2e-2)
+
+
+def test_entry_points_need_cuda_or_cpu():
+    """Without a CUDA device the default device raises; no CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = tnet.NetworkConfig(**_net_cfg())
+    with pytest.raises(RuntimeError, match="cuda"):
+        tnet.init_network(None, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TTrainer(cfg, trend.RenderConfig(), TOpts())
+
+
+def test_unported_options_raise(tmp_path):
+    """Options outside the slice raise NotImplementedError naming ROADMAP."""
+    _, tt, pose, intr = _trainers(tmp_path, _net_cfg(), 1.0, {})
+    tt.march_cfg = dataclasses.replace(tt.march_cfg, dt_gamma=1 / 128)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tt.render_full(tt.params, pose, intr, 8, 8)
+    tt.march_cfg = dataclasses.replace(tt.march_cfg, dt_gamma=0.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tt.render_full(tt.params, pose, intr, 8, 8,
+                       crop_aabb=np.asarray([-1, -1, -1, 1, 1, 1], np.float32))
+
+
+def test_beam_rules_match(tmp_path):
+    """The AUTO beam width and its tile-row clamp agree with the reference."""
+    tj, tt, _, _ = _trainers(tmp_path, _net_cfg(), 1.0, {})
+    for w in (800, 820, 640, 840, 65, 16):
+        for bm in (1, 2, 8, 16):
+            assert tt._clamp_beam_to_rows(bm, w) == tj._clamp_beam_to_rows(bm, w)
+    for mkw in (dict(bound=2.0, grid_size=128), dict(bound=1.0, grid_size=32)):
+        tj.march_cfg = jm.MarchConfig(**mkw)
+        tt.march_cfg = tm.MarchConfig(**mkw)
+        for f in (20.0, 64.0, 800.0, 1000.0, 3000.0):
+            intr = np.asarray([f, f * 1.1, 400, 400], np.float32)
+            assert tt._auto_beam(intr) == tj._auto_beam(intr)
