@@ -129,9 +129,11 @@ def kernel_phase(device, n_full, timer):
         check(ok, f"{what}: max |kernel - plain| = {err}")
         max_err = max(max_err, err)
 
+    # a full round (chunk x 8 samples), a compacted one (a quarter of the
+    # chunk's rays), and ragged sizes
     for name, dims in MLP_SHAPES.items():
         ws = mlp_weights(dims, gen, device)
-        for n in (n_full, 1, 1000, 1025):
+        for n in (n_full, n_full // 4, 1, 1000, 1025):
             x = torch.randn((n, dims[0]), generator=gen).to(device)
             compare(x, ws, "relu", "none", f"{name} N={n}")
     dims = MLP_SHAPES["color"]

@@ -75,7 +75,7 @@ def _finish_build(name: str, proc, paths) -> str:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-    os.replace(tmp, target)  # atomic: concurrent builders race harmlessly
+    os.replace(tmp, target)  # atomic: concurrent builds race harmlessly
     return out
 
 

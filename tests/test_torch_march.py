@@ -7,6 +7,7 @@ packed rows) must match exactly, z/dt to rtol 1e-6 and near/far to 1e-5.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,9 +163,31 @@ def test_beam_contract_violation():
             jm.beam_contract_violation(d, a), rel=1e-12)
 
 
+_GROUPED = jm._grouped_block_test
+_COMPACT = jax.jit(jm._compact_idx, static_argnums=(1, 2))
+_SELECT = jax.jit(jm._select_minor, static_argnums=(2,))
+_BLOCK_TEST = jax.jit(
+    lambda t, f, l, g, a: _GROUPED(t, f, l, g, None if a is None else list(a)),
+    static_argnums=(3, 4))
+
+
+def _jit_exact_helpers(monkeypatch):
+    """Run the JAX march's integer and select-only helpers (compaction,
+    anchored block-bit test, minor-axis select) jitted: their results are
+    exact either way, and a few compiles replace ~80 op-by-op ones. The
+    float geometry around them stays op by op."""
+    monkeypatch.setattr(jm, "_compact_idx",
+                        lambda occ, k, spread=True, **kw: _COMPACT(occ, k, spread))
+    monkeypatch.setattr(jm, "_select_minor", _SELECT)
+    monkeypatch.setattr(
+        jm, "_grouped_block_test",
+        lambda t, f, l, g, anchors=None: _BLOCK_TEST(
+            t, f, l, g, None if anchors is None else tuple(anchors)))
+
+
 @pytest.mark.parametrize("beam", [1, 8])
 @pytest.mark.parametrize("bound", [1.0, 2.0])
-def test_march_rays_block_matches(beam, bound):
+def test_march_rays_block_matches(beam, bound, monkeypatch):
     """The eval marcher (uniform normalized ladder, 2 anchors, beam 1 and 8):
     valid exact, z/dt to rtol 1e-6. The ladder length and run length are
     pinned (their planners are held in test_ladder_plans) so the four cases
@@ -186,6 +209,7 @@ def test_march_rays_block_matches(beam, bound):
             occ_t["blocks_coarse_dilated"].numpy().astype(np.uint32))
     # op by op: under jit, XLA contracts multiply-adds into FMAs and moves
     # samples by an ulp (the port matches the unfused arithmetic bit for bit)
+    _jit_exact_helpers(monkeypatch)
     mj = jm.march(jnp.asarray(o), jnp.asarray(d), occ_j, cfg_j)
     mt = tm.march(_to_t(o), _to_t(d), occ_t, cfg_t)
     vj = np.asarray(mj["valid"])
