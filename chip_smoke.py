@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py                  # on a machine with a CUDA card
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes on the CPU, plain versions
+    python3 chip_smoke.py --kernels-only   # set-up and kernel phase, then exit
 
 1. Set-up: prints the card's name and power limit (nvidia-smi) and builds
    every CUDA kernel of the port from csrc/ (one nvcc per source, started
    together).
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and ragged ones (fused MLP: atol = rtol = 2e-2,
-   the bound tests/test_fused_mlp.py uses; hidden activations are re-rounded
-   to bf16, so a different f32 summation order can move one by a bf16 step),
-   then timed with CUDA events beside the plain version and a library call.
+   at the main path's shapes, ragged ones and the edges of the kernel's
+   contract (fused MLP: atol = rtol = 2e-2, the bound tests/test_fused_mlp.py
+   uses; hidden activations are re-rounded to bf16, so a different f32
+   summation order can move one by a bf16 step), then timed with CUDA events
+   beside the plain version and a library call, at the main path's N and at
+   8 x N. With --kernels-only the script stops here, with no result line.
 3. Slice phase: the -O --ff eval render, Trainer.render_full of one 800x800
    frame of the flagship field (cell hash grid 4x8 @ 2^17, fused MLPs,
    bound 2, K 32, bf16 tables, AUTO beam) over the synthetic shell + floor
@@ -41,6 +44,11 @@ H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor cores, H100 SXM data sheet
 MLP_TOL = 2e-2
 ACTIVATIONS = ["relu", "none", "exp", "sigmoid", "sine", "squareplus", "softplus"]
 MLP_SHAPES = {"sigma": [32, 64, 16], "color": [31, 64, 64, 3]}
+# edges of the fused MLP's contract (1-8 layers, widths 1-256, any N):
+# name -> (dims, rows); plus the color net at COLOR_EDGE_ROWS rows
+MLP_EDGES = {"8x128": ([128] * 9, 1000), "3-256-256-1": ([3, 256, 256, 1], 1000),
+             "1-16-1": ([1, 16, 1], 1000)}
+COLOR_EDGE_ROWS = (1, 127, 128, 129, 8192, 32768)
 
 
 def check(cond, msg):
@@ -136,6 +144,19 @@ def kernel_phase(device, n_full, timer):
         for n in (n_full, n_full // 4, 1, 1000, 1025):
             x = torch.randn((n, dims[0]), generator=gen).to(device)
             compare(x, ws, "relu", "none", f"{name} N={n}")
+    # the contract's edges: depth, width, narrow nets, ragged tiles, and x
+    # that starts one row (124 bytes) into its buffer
+    for name, (dims, n) in MLP_EDGES.items():
+        ws = mlp_weights(dims, gen, device)
+        x = torch.randn((n, dims[0]), generator=gen).to(device)
+        compare(x, ws, "relu", "none", f"{name} N={n}")
+    dims = MLP_SHAPES["color"]
+    ws = mlp_weights(dims, gen, device)
+    for n in COLOR_EDGE_ROWS:
+        x = torch.randn((n, dims[0]), generator=gen).to(device)
+        compare(x, ws, "relu", "none", f"color N={n}")
+    buf = torch.randn((1001, dims[0]), generator=gen).to(device)
+    compare(buf[1:], ws, "relu", "none", "color, x one row into its buffer")
     dims = MLP_SHAPES["color"]
     ws = mlp_weights(dims, gen, device, scale=0.05)
     x = torch.randn((4096, dims[0]), generator=gen).to(device)
@@ -146,12 +167,29 @@ def kernel_phase(device, n_full, timer):
     log(f"kernel phase: fused_mlp matches its plain version, max |err| = {max_err:.3g}")
 
     # one shaded round of a full chunk launches the sigma and the color MLP
-    # at N = chunk x round width; time that pair
-    per_shape = {}
+    # at N = chunk x round width; time that pair there, and at 8 x N, where
+    # the launch and the first loads no longer dominate
+    per_shape = time_shapes(n_full, gen, device, timer)
+    big = time_shapes(8 * n_full, gen, device, timer)
+    for n, shapes in ((n_full, per_shape), (8 * n_full, big)):
+        log("fused_mlp per shape at N =", n, json.dumps(shapes))
+    total = {k: sum(v[k] for v in per_shape.values())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    bound_by = {mlp_bound_ms(n_full, d)[1] for d in MLP_SHAPES.values()}
+    return {**total, "max_abs_err": max_err,
+            "bound_by": "bytes" if bound_by == {"bytes"} else "operations"}
+
+
+def time_shapes(n, gen, device, timer):
+    """Kernel, plain version and bf16 torch.matmul chain at N = n rows for
+    each main-path shape; with the bound and the kernel's share of it."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    out = {}
     for name, dims in MLP_SHAPES.items():
         # bf16 weights, as Trainer._cast_eval_tables hands them to the kernel
         wb = [w.to(torch.bfloat16) for w in mlp_weights(dims, gen, device)]
-        x = torch.randn((n_full, dims[0]), generator=gen).to(device)
+        x = torch.randn((n, dims[0]), generator=gen).to(device)
 
         def library(x=x, wb=wb):
             h = x.to(torch.bfloat16)
@@ -161,18 +199,13 @@ def kernel_phase(device, n_full, timer):
                     h = torch.relu(h)
             return h.float()
 
-        per_shape[name] = {
-            "ms": timer(lambda x=x, wb=wb: fm.fused_mlp(x, wb)),
-            "plain_ms": timer(lambda x=x, wb=wb: fm.fused_mlp_reference(x, wb)),
-            "library_ms": timer(library),
-            "bound_ms": mlp_bound_ms(n_full, dims)[0],
-        }
-    log("fused_mlp per shape at N =", n_full, json.dumps(per_shape))
-    total = {k: sum(v[k] for v in per_shape.values())
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    bound_by = {mlp_bound_ms(n_full, d)[1] for d in MLP_SHAPES.values()}
-    return {**total, "max_abs_err": max_err,
-            "bound_by": "bytes" if bound_by == {"bytes"} else "operations"}
+        t = {"ms": timer(lambda x=x, wb=wb: fm.fused_mlp(x, wb)),
+             "plain_ms": timer(lambda x=x, wb=wb: fm.fused_mlp_reference(x, wb)),
+             "library_ms": timer(library),
+             "bound_ms": mlp_bound_ms(n, dims)[0]}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        out[name] = t
+    return out
 
 
 def shell_occupancy(bound, grid_size, coarse_factor, device):
@@ -390,6 +423,9 @@ def main():
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase at tiny sizes on the CPU with the plain "
                          "versions (never reports a GPU)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="set-up and the kernel phase only, then exit without "
+                         "the result lines (for iterating on a kernel)")
     args = ap.parse_args()
     if args.cpu_rehearsal:
         device = torch.device("cpu")
@@ -417,6 +453,8 @@ def main():
             log(f"built {name} ({time.perf_counter() - t0:.1f} s):\n{out.strip()}")
     timer = Timer(device)
     mlp = kernel_phase(device, sizes["mlp_n"], timer)
+    if args.kernels_only:
+        return
     launches = slice_phase(device, sizes, card)
     entry = {"name": "fused_mlp", "route": "cuda",
              "source": "nerfnav_tpu_torch/csrc/fused_mlp.cu",

@@ -141,6 +141,32 @@ def test_fused_mlp_ragged_sigma_shape(n):
     np.testing.assert_allclose(out_t.numpy(), _np(out_j), rtol=2e-2, atol=2e-2)
 
 
+# the kernel's contract edges (chip_smoke.py checks the card's kernel at the
+# same shapes against the plain version): name -> (dims, rows)
+MLP_EDGES = {
+    "8x128": ([128] * 9, 257),
+    "3-256-256-1": ([3, 256, 256, 1], 257),
+    "1-16-1": ([1, 16, 1], 257),
+    **{f"color-N{n}": ([31, 64, 64, 3], n) for n in (1, 127, 128, 129, 8192, 32768)},
+}
+
+
+@pytest.mark.parametrize("edge", [*MLP_EDGES, "color-misaligned"])
+def test_fused_mlp_contract_edges(edge):
+    """The plain version vs the JAX golden at the contract's edges, and on an
+    x that starts one row (124 bytes) into its buffer (within 2e-2)."""
+    dims, n = MLP_EDGES.get(edge, ([31, 64, 64, 3], 1000))
+    rng = np.random.default_rng(list(MLP_EDGES).index(edge) if edge in MLP_EDGES else 99)
+    buf = torch.as_tensor(rng.normal(size=(n + 1, dims[0])).astype(np.float32))
+    x = buf[1:] if edge == "color-misaligned" else buf[:n]
+    ws = [rng.uniform(-1, 1, size=(a, b)).astype(np.float32) / np.sqrt(a)
+          for a, b in zip(dims[:-1], dims[1:])]
+    out_t = tfm.fused_mlp(x, [torch.as_tensor(w) for w in ws])
+    out_j = jfm.fused_mlp_reference(jnp.asarray(x.numpy()), [jnp.asarray(w) for w in ws])
+    assert out_t.shape == (n, dims[-1]) and out_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), _np(out_j), rtol=2e-2, atol=2e-2)
+
+
 def test_fused_mlp_rejects_what_the_kernel_cannot_take():
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="layers"):
