@@ -95,7 +95,11 @@ def fused_mlp(x, weights, activation="relu", output_activation="none"):
     from nerfnav_tpu_torch import kernels
 
     lib = kernels.load("fused_mlp")
+    # the kernel copies x in 16-byte pieces: a contiguous view can start at
+    # any offset, so such a view is copied first
     xf = x.float().contiguous()
+    if xf.data_ptr() % 16:
+        xf = xf.clone()
     wb = [w.to(torch.bfloat16).contiguous() for w in weights]
     out = torch.empty((x.shape[0], dims[-1]), device=x.device, dtype=torch.float32)
     if x.shape[0] == 0:
