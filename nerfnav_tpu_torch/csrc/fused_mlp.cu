@@ -73,8 +73,8 @@ constexpr int kStageBatch = 8;  // weight slots a thread gathers per trip to L2
 struct MlpArgs {
   const __nv_bfloat16* w[kMaxLayers];  // (dims[i], dims[i+1]) row major
   int dims[kMaxLayers + 1];
-  int kt[kMaxLayers];          // k16 tiles of layer i's input
-  int nt[kMaxLayers];          // n8 tiles of layer i's output
+  int kt[kMaxLayers];          // k16 tiles of layer i's input, a power of 2
+  int nt[kMaxLayers];          // n8 tiles of layer i's output, a power of 2
   int woff[kMaxLayers + 1];    // fragment slot (8 bytes) where layer i starts
   int n_layers;
   int resident;  // 1: every layer staged once; 0: one layer at a time
@@ -84,7 +84,7 @@ struct MlpArgs {
 
 // Activation ids follow _ACTIVATIONS in ops/fused_mlp.py. relu and none
 // (the eval render's) are inlined; the others share one out-of-line copy, so
-// the unrolled layer chain does not carry 7 inlined bodies (sinf's slow path
+// the unrolled layer chain does not carry their bodies (sinf's slow path
 // among them) for every element it activates.
 __device__ __noinline__ float activate_call(float v, int act) {
   switch (act) {
@@ -96,10 +96,26 @@ __device__ __noinline__ float activate_call(float v, int act) {
   }
 }
 
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 0) return fmaxf(v, 0.f);  // relu
-  if (act == 1) return v;              // none
-  return activate_call(v, act);
+// The activation of the accumulators, chosen once per layer rather than per
+// element.
+template <int MT, int NT>
+__device__ __forceinline__ void activate_tiles(float (&acc)[MT][NT][4], int act) {
+  if (act == 1) return;  // none
+  if (act == 0) {        // relu
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] = fmaxf(acc[m][j][i], 0.f);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = activate_call(acc[m][j][i], act);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -194,6 +210,101 @@ __device__ __forceinline__ void load_x(const float* __restrict__ x, float* x_s,
   cp_async_commit();
 }
 
+// mma over k16 tiles [0, KTL) and n8 tiles [0, NTL) of one layer. B
+// fragments come from the layer's slots in w_s; nothing is guarded, so the
+// loads can all be issued ahead of the products.
+template <int MT, int KT, int NTL, int KTL = 1>
+__device__ __forceinline__ void layer_mma(int kt, const uint2* wl, int lane,
+                                          const uint32_t (&af)[MT][KT][4],
+                                          float (&acc)[MT][NTL][4]) {
+  if constexpr (KTL < KT) {
+    if (kt > KTL) return layer_mma<MT, KT, NTL, 2 * KTL>(kt, wl, lane, af, acc);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KTL; ++kk) {
+#pragma unroll
+    for (int j = 0; j < NTL; ++j) {
+      const uint2 b = wl[(kk * NTL + j) * 32 + lane];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], af[m][kk], b);
+    }
+  }
+}
+
+// Where the last layer's rows go.
+struct Output {
+  float* out;
+  int n, dout, r0;
+};
+
+// One layer with NTL n8 tiles: products, activation, then either the next
+// layer's A fragments (accumulators of n8 tiles 2kk and 2kk + 1 are the A
+// fragment of k16 tile kk) or the output. The layer's tile counts are powers
+// of two, so NTL and KTL are compile-time: the dispatch picks the unrolled
+// body once per layer.
+template <int MT, int KT, int NTL = 1>
+__device__ __forceinline__ void layer(int nt, int kt, const uint2* wl, int lane,
+                                      uint32_t (&af)[MT][KT][4], int act,
+                                      bool last, const Output& o) {
+  if constexpr (NTL < 2 * KT) {
+    if (nt > NTL) return layer<MT, KT, 2 * NTL>(nt, kt, wl, lane, af, act, last, o);
+  }
+  float acc[MT][NTL][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NTL; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
+  layer_mma<MT, KT, NTL>(kt, wl, lane, af, acc);
+  activate_tiles<MT, NTL>(acc, act);
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  if (last) {
+#pragma unroll
+    for (int j = 0; j < NTL; ++j) {
+      const int col = j * 8 + 2 * t;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = o.r0 + m * 16 + g + 8 * h;
+          if (row < o.n && col < o.dout) {
+            float* p = o.out + (size_t)row * o.dout + col;
+            if ((o.dout & 1) == 0) {  // col + 1 < dout as well
+              *reinterpret_cast<float2*>(p) =
+                  make_float2(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+            } else {
+              p[0] = acc[m][j][2 * h];
+              if (col + 1 < o.dout) p[1] = acc[m][j][2 * h + 1];
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  // padded columns meet zero weight rows in the next layer
+#pragma unroll
+  for (int kk = 0; kk < (NTL + 1) / 2; ++kk) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float* p = acc[m][2 * kk];
+      af[m][kk][0] = pack_bf16(p[0], p[1]);
+      af[m][kk][1] = pack_bf16(p[2], p[3]);
+      if (2 * kk + 1 < NTL) {
+        const float* q = acc[m][2 * kk + 1];
+        af[m][kk][2] = pack_bf16(q[0], q[1]);
+        af[m][kk][3] = pack_bf16(q[2], q[3]);
+      } else {
+        af[m][kk][2] = 0u;
+        af[m][kk][3] = 0u;
+      }
+    }
+  }
+}
+
 template <int PW, int MT>
 __global__ void __launch_bounds__(kThreads)
 fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
@@ -235,12 +346,11 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
     for (int m = 0; m < MT; ++m) {
       const float* lo = x_s + (m * 16 + g) * xs;
       const float* hi = lo + 8 * xs;
+      if (xs != d0) {  // d0 even: a pair is in or out of the row together
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        const int c = kk * 16 + 2 * t;
-        if (kk >= kt0) {
-          // not read by layer 0
-        } else if (xs != d0) {  // d0 even: a pair is in or out of the row together
+        for (int kk = 0; kk < KT; ++kk) {
+          if (kk >= kt0) break;
+          const int c = kk * 16 + 2 * t;
           const float2 z = make_float2(0.f, 0.f);
           const float2 p0 = c < d0 ? *reinterpret_cast<const float2*>(lo + c) : z;
           const float2 p1 = c < d0 ? *reinterpret_cast<const float2*>(hi + c) : z;
@@ -250,8 +360,13 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
           af[m][kk][1] = pack_bf16(p1.x, p1.y);
           af[m][kk][2] = pack_bf16(p2.x, p2.y);
           af[m][kk][3] = pack_bf16(p3.x, p3.y);
-        } else {
-          auto ld = [&](const float* row, int col) { return col < d0 ? row[col] : 0.f; };
+        }
+      } else {
+        auto ld = [&](const float* row, int col) { return col < d0 ? row[col] : 0.f; };
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          if (kk >= kt0) break;
+          const int c = kk * 16 + 2 * t;
           af[m][kk][0] = pack_bf16(ld(lo, c), ld(lo, c + 1));
           af[m][kk][1] = pack_bf16(ld(hi, c), ld(hi, c + 1));
           af[m][kk][2] = pack_bf16(ld(lo, c + 8), ld(lo, c + 9));
@@ -264,6 +379,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
       load_x<R>(x, x_s, r0 + gridDim.x * kWarps * R, n, d0, xs, lane);
     }
 
+    const Output o = {out, n, a.dims[L], r0};
     for (int l = 0; l < L; ++l) {
       if (!a.resident) {
         __syncthreads();  // every warp is done with the previous layer
@@ -271,78 +387,17 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
         __syncthreads();
       }
       const uint2* wl = w_s + (a.resident ? a.woff[l] : 0);
-      const int kt = a.kt[l];
-      const int nt = a.nt[l];
-      float acc[MT][NT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          if (kk < kt && j < nt) {
-            const uint2 b = wl[(kk * nt + j) * 32 + lane];
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], af[m][kk], b);
-          }
-        }
-      }
-
-      if (l == L - 1) {
-        const int dout = a.dims[L];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int col = j * 8 + 2 * t;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int row = r0 + m * 16 + g + 8 * h;
-              if (j >= nt || row >= n || col >= dout) continue;
-              const float v0 = activate(acc[m][j][2 * h], out_act);
-              float* o = out + (size_t)row * dout + col;
-              if (col + 1 < dout) {
-                const float v1 = activate(acc[m][j][2 * h + 1], out_act);
-                if ((dout & 1) == 0) {
-                  *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-                } else {
-                  o[0] = v0;
-                  o[1] = v1;
-                }
-              } else {
-                o[0] = v0;
-              }
-            }
-          }
-        }
-      } else {
-        // accumulators of n8 tiles 2kk, 2kk + 1 -> A fragment of k16 tile
-        // kk; padded columns meet zero weight rows in the next layer
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-#pragma unroll
-          for (int kk = 0; kk < KT; ++kk) {
-            if (2 * kk >= nt) continue;
-            float v[8];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              v[i] = activate(acc[m][2 * kk][i], act);
-              v[4 + i] = 2 * kk + 1 < nt ? activate(acc[m][2 * kk + 1][i], act) : 0.f;
-            }
-            af[m][kk][0] = pack_bf16(v[0], v[1]);
-            af[m][kk][1] = pack_bf16(v[2], v[3]);
-            af[m][kk][2] = pack_bf16(v[4], v[5]);
-            af[m][kk][3] = pack_bf16(v[6], v[7]);
-          }
-        }
-      }
+      const bool last = l == L - 1;
+      layer<MT, KT>(a.nt[l], a.kt[l], wl, lane, af, last ? out_act : act, last, o);
     }
   }
   cp_async_wait_all();  // no copy outlives the block
+}
+
+int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
 }
 
 struct DeviceInfo {
@@ -428,8 +483,8 @@ extern "C" int nerfnav_fused_mlp_forward(const void* x, const void* w_ptrs,
   }
   for (int i = 0; i < n_layers; ++i) {
     a.w[i] = static_cast<const __nv_bfloat16*>(wp[i]);
-    a.kt[i] = (d[i] + 15) / 16;
-    a.nt[i] = (d[i + 1] + 7) / 8;
+    a.kt[i] = pow2_at_least((d[i] + 15) / 16);
+    a.nt[i] = pow2_at_least((d[i + 1] + 7) / 8);
     a.woff[i + 1] = a.woff[i] + a.kt[i] * a.nt[i] * 32;
   }
   if (n <= 0) return (int)cudaSuccess;
