@@ -76,9 +76,11 @@ struct MlpArgs {
   int kt[kMaxLayers];          // k16 tiles of layer i's input, a power of 2
   int nt[kMaxLayers];          // n8 tiles of layer i's output, a power of 2
   int woff[kMaxLayers + 1];    // fragment slot (8 bytes) where layer i starts
+  int roff[kMaxLayers + 1];    // bf16 element where layer i's raw copy starts
   int n_layers;
   int resident;  // 1: every layer staged once; 0: one layer at a time
   int wslots;    // slots of the shared weight region
+  int rsize;     // bf16 elements of the raw weight copy (resident only)
   int xs;        // row stride of x in shared memory, in floats
 };
 
@@ -183,6 +185,44 @@ __device__ void stage_weights(const MlpArgs& a, int l0, int l1, uint2* w_s) {
     for (int u = 0; u < kStageBatch; ++u) {
       const int s = s0 + u * kThreads;
       if (s < n_slots) w_s[s] = v[u];
+    }
+  }
+}
+
+// Stage every layer when all fit: one coalesced cp.async copy of the raw
+// row-major weights (16 bytes a piece, in flight with the first x tile),
+// then a permutation inside shared memory into the B-fragment order that
+// stage_weights describes. The caller puts a barrier after.
+__device__ void stage_resident(const MlpArgs& a, uint2* w_s, unsigned short* raw) {
+  const int tid = threadIdx.x;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int ne = a.dims[l] * a.dims[l + 1];
+    const unsigned short* src = reinterpret_cast<const unsigned short*>(a.w[l]);
+    unsigned short* dst = raw + a.roff[l];
+    const int n16 = reinterpret_cast<uintptr_t>(src) % 16 ? 0 : ne / 8;
+    for (int c = tid; c < n16; c += kThreads) cp_async16(dst + c * 8, src + c * 8);
+    for (int e = n16 * 8 + tid; e < ne; e += kThreads) dst[e] = src[e];
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int din = a.dims[l];
+    const int dout = a.dims[l + 1];
+    const int nt = a.nt[l];
+    const int log_nt = __ffs(nt) - 1;  // nt is a power of 2
+    const unsigned short* w = raw + a.roff[l];
+    uint2* dst = w_s + a.woff[l];
+    const int n_slots = a.woff[l + 1] - a.woff[l];
+    for (int s = tid; s < n_slots; s += kThreads) {
+      const int tile = s >> 5;
+      const int kk = tile >> log_nt;
+      const int col = (tile & (nt - 1)) * 8 + ((s & 31) >> 2);
+      const int k = kk * 16 + (s & 3) * 2;
+      auto at = [&](int kr) -> uint32_t {
+        return k + kr < din && col < dout ? w[(k + kr) * dout + col] : 0u;
+      };
+      dst[s] = make_uint2(at(0) | at(1) << 16, at(8) | at(9) << 16);
     }
   }
 }
@@ -322,13 +362,14 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
   const int d0 = a.dims[0];
   const int xs = a.xs;
   const int L = a.n_layers;
-  float* x_s = reinterpret_cast<float*>(w_s + a.wslots) + warp * R * xs;
+  float* x_all = reinterpret_cast<float*>(w_s + a.wslots);
+  float* x_s = x_all + warp * R * xs;
 
   const int n_tiles = (n + kWarps * R - 1) / (kWarps * R);
   int tile = blockIdx.x;
   load_x<R>(x, x_s, tile * kWarps * R + warp * R, n, d0, xs, lane);
   if (a.resident) {
-    stage_weights(a, 0, L, w_s);
+    stage_resident(a, w_s, reinterpret_cast<unsigned short*>(x_all + kWarps * R * xs));
     __syncthreads();
   }
 
@@ -434,10 +475,14 @@ int launch(const float* x, float* out, int n, MlpArgs& a, int act, int out_act,
     const int s = a.woff[i + 1] - a.woff[i];
     layer_slots = s > layer_slots ? s : layer_slots;
   }
-  a.resident = (size_t)a.woff[a.n_layers] * sizeof(uint2) + x_bytes <=
+  // resident: fragments, x, then the raw copy of every layer
+  a.resident = (size_t)a.woff[a.n_layers] * sizeof(uint2) + x_bytes +
+                   (size_t)a.roff[a.n_layers] * sizeof(__nv_bfloat16) <=
                (size_t)info.smem_optin;
   a.wslots = a.resident ? a.woff[a.n_layers] : layer_slots;
-  const size_t smem = (size_t)a.wslots * sizeof(uint2) + x_bytes;
+  a.rsize = a.resident ? a.roff[a.n_layers] : 0;
+  const size_t smem = (size_t)a.wslots * sizeof(uint2) + x_bytes +
+                      (size_t)a.rsize * sizeof(__nv_bfloat16);
   if (smem > (size_t)info.smem_optin) return (int)cudaErrorInvalidValue;
 
   // per (device, instantiation): the dynamic shared memory allowed so far
@@ -486,6 +531,7 @@ extern "C" int nerfnav_fused_mlp_forward(const void* x, const void* w_ptrs,
     a.kt[i] = pow2_at_least((d[i] + 15) / 16);
     a.nt[i] = pow2_at_least((d[i + 1] + 7) / 8);
     a.woff[i + 1] = a.woff[i] + a.kt[i] * a.nt[i] * 32;
+    a.roff[i + 1] = a.roff[i] + (d[i] * d[i + 1] + 7) / 8 * 8;
   }
   if (n <= 0) return (int)cudaSuccess;
   const float* xf = static_cast<const float*>(x);
