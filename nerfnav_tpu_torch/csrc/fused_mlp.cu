@@ -11,7 +11,7 @@
 // color 31->64->64->3, N = 32,768 rows) a row costs 6.1-12.5 kFLOP against
 // 136-192 bytes of f32 input and output, far under the ~295 FLOP/byte the
 // bf16 tensor cores need: the byte bound is 1.9 us (sigma) and 1.3 us
-// (color), the FLOP bound 0.2 / 0.4 us. At that N the card does ~2 tiles of
+// (color), the FLOP bound 0.2 / 0.4 us. At that N the card holds ~2 tiles of
 // work per SM, so what is left after the bytes is serial latency: the
 // launch, one trip to L2 for the weights, one to HBM for x, and the layer
 // chain. The design cuts each of those.
@@ -21,38 +21,42 @@
 //   SM x SMs) and each block walks row tiles with a stride of gridDim.x.
 //   Each warp owns R = 16 * MT rows of a tile (MT = 2 m-tiles up to width 64,
 //   1 above).
-// - The weights are staged once per block, in the mma B-fragment order
-//   (one 8-byte load per lane per k16 x n8 tile, conflict-free), zero-padded
-//   to k multiples of 16 and n multiples of 8. One barrier follows; there is
-//   none per layer. Where every layer does not fit in shared memory (eight
-//   256-wide layers), the block stages one layer at a time instead, between
-//   two barriers: the same chain, streamed weights.
+// - The weights are staged once per block, in the mma B-fragment order (one
+//   conflict-free 8-byte load per lane per k16 x n8 tile), zero-padded to
+//   k16 and n8 tile counts that are powers of two. The raw row-major weights
+//   arrive by one coalesced cp.async copy, in flight with the first x tile,
+//   and are permuted inside shared memory; one barrier follows, none per
+//   layer. Where the layers do not all fit (eight 256-wide layers), the
+//   block gathers one layer at a time from L2 instead, between two barriers.
 // - The layer chain stays in registers: mma.sync.m16n8k16 (bf16 in, f32
 //   accumulate). The accumulators of n8 tiles 2j and 2j+1 are exactly the A
 //   fragment of k16 tile j of the next layer, so a layer is: accumulate,
 //   activate in registers, round with __float22bfloat162_rn, feed the next
-//   mma. No shared-memory round trip, no scratch. Loops are unrolled to the
-//   compile-time widest width PW (16..256) and guarded by the runtime widths,
-//   so fragment arrays keep constant indices and stay in registers.
-// - x reaches shared memory by cp.async: the warp's next tile is copied
-//   while the current one runs its layers (its layer-0 A fragments are built
-//   in registers first, which frees the buffer: registers and the buffer are
-//   the two stages). The first tile's copy is issued before the weights are
-//   staged, so the two latencies overlap. A warp's rows are one contiguous,
-//   16-byte-aligned range (the wrapper guarantees x's alignment); when
-//   D_in % 4 == 0 rows are laid at a stride of 8 mod 32 floats so the float2
-//   fragment loads are conflict-free; otherwise (D_in = 31) rows are copied
-//   flat, 16 bytes at a time, with a 4-byte tail.
+//   mma. No shared-memory round trip, no scratch. Each layer's tile counts
+//   pick, once per layer, a body unrolled for exactly those counts: an
+//   unrolled body guarded by runtime widths either issues predicated-off
+//   work for the widest layer or splits every tile into a basic block of
+//   its own, with each shared-memory load serialised before its product.
+// - x reaches shared memory by cp.async, in two stages: a warp copies its
+//   next tile into its shared slot as soon as the current tile's layer-0 A
+//   fragments are in registers, so the copy runs under the current tile's
+//   layers. (A second shared slot, two tiles ahead, measured no faster.) A
+//   warp's rows are one contiguous, 16-byte-aligned range (the wrapper
+//   guarantees x's alignment); when D_in % 4 == 0 rows are laid at a stride
+//   of 8 mod 32 floats, so the float2 fragment loads are conflict-free;
+//   otherwise (D_in = 31) rows are copied flat, 16 bytes at a time, with a
+//   4-byte tail.
 // - The output goes from the accumulators straight to device memory, with
 //   guarded stores at the ragged edge; the 3-wide color output costs one n8
 //   tile.
-// Why not wgmma / TMA: the tensor-core work is 0.2-0.4 us at the dense peak,
-// so wgmma buys nothing measurable here; a 2D TMA tensor map cannot describe
-// the color input (row stride 124 bytes, not a multiple of 16).
-// What PR 1's design (per-64-row blocks, wmma through an f32 scratch) spent
-// and this one does not: per-layer weight re-staging with two barriers each,
-// the f32 scratch round trip and serial lane loop per 16x16 tile, and 512
-// blocks that never overlapped a load with the chain.
+// Why not wgmma / TMA tensor maps: the tensor-core work is 0.2-0.4 us at the
+// dense peak, so wgmma buys nothing measurable here, and a 2D TMA tensor map
+// cannot describe the color input (row stride 124 bytes, not a multiple of
+// 16).
+// What the previous design (a block per 64 rows, wmma through an f32
+// scratch) spent and this one does not: per-layer weight re-staging with
+// two barriers each, the f32 scratch round trip and serial lane loop per
+// 16x16 tile, and 512 blocks that never overlapped a load with the chain.
 //
 // Limits (checked by the wrapper and here): 1-8 layers, every width 1-256,
 // any N; x 16-byte aligned.
