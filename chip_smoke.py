@@ -278,10 +278,12 @@ def profile_frame(tr, pose, intr, hw, frame_ms):
         return
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    fused = [v for k, v in by_name.items() if "fused_mlp_kernel" in k]
     log("profiled frame:", json.dumps({
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "kernel_launches": sum(n for _, n in by_name.values()),
         "device_idle_share_of_unprofiled_frame": 1.0 - busy_ms / frame_ms,
+        "fused_mlp_kernel_ms_count": [sum(ms for ms, _ in fused), sum(n for _, n in fused)],
         "top_kernels_ms_count": [[k[:70], round(ms, 3), n] for k, (ms, n) in top],
     }))
 

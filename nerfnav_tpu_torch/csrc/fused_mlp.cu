@@ -84,7 +84,6 @@ struct MlpArgs {
   int n_layers;
   int resident;  // 1: every layer staged once; 0: one layer at a time
   int wslots;    // slots of the shared weight region
-  int rsize;     // bf16 elements of the raw weight copy (resident only)
   int xs;        // row stride of x in shared memory, in floats
 };
 
@@ -480,13 +479,12 @@ int launch(const float* x, float* out, int n, MlpArgs& a, int act, int out_act,
     layer_slots = s > layer_slots ? s : layer_slots;
   }
   // resident: fragments, x, then the raw copy of every layer
-  a.resident = (size_t)a.woff[a.n_layers] * sizeof(uint2) + x_bytes +
-                   (size_t)a.roff[a.n_layers] * sizeof(__nv_bfloat16) <=
+  const size_t raw_bytes = (size_t)a.roff[a.n_layers] * sizeof(__nv_bfloat16);
+  a.resident = (size_t)a.woff[a.n_layers] * sizeof(uint2) + x_bytes + raw_bytes <=
                (size_t)info.smem_optin;
   a.wslots = a.resident ? a.woff[a.n_layers] : layer_slots;
-  a.rsize = a.resident ? a.roff[a.n_layers] : 0;
-  const size_t smem = (size_t)a.wslots * sizeof(uint2) + x_bytes +
-                      (size_t)a.rsize * sizeof(__nv_bfloat16);
+  const size_t smem =
+      (size_t)a.wslots * sizeof(uint2) + x_bytes + (a.resident ? raw_bytes : 0);
   if (smem > (size_t)info.smem_optin) return (int)cudaErrorInvalidValue;
 
   // per (device, instantiation): the dynamic shared memory allowed so far
