@@ -354,7 +354,6 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
                  MlpArgs a, int act, int out_act) {
   constexpr int R = 16 * MT;  // rows per warp tile
   constexpr int KT = PW / 16;
-  constexpr int NT = PW / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   uint2* w_s = reinterpret_cast<uint2*>(smem);
 
