@@ -10,15 +10,16 @@ Numerics (the reference's `_mlp_math`): the input and weights are rounded to
 bf16, each layer accumulates in f32, each hidden activation is rounded back
 to bf16, the output activation runs in f32, the output is f32.
 
-Forward only in this slice: the backward (an f32 recompute in the reference)
-arrives with training, so inputs that require grad raise.
+The backward is the reference's custom_vjp (`_fused_mlp_bwd`): plain torch,
+on either device, that recomputes the layer stack on bf16-rounded x and
+weights and chains the matmul gradients with the reference's rounding points
+(`_mlp_backward`). It needs no kernel: the reference computes it in XLA,
+outside its Pallas kernel.
 """
 
 import ctypes
 
 import torch
-
-from nerfnav_tpu_torch.device import unported
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -30,6 +31,17 @@ _ACTIVATIONS = {
     "softplus": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
 }
 _ACT_IDS = {name: i for i, name in enumerate(_ACTIVATIONS)}
+# d act(x) / dx times g, as the reference's autodiff takes it; jnp.maximum
+# splits the gradient at a tie, so relu passes half of it at x == 0
+_ACT_GRADS = {
+    "relu": lambda x, g: torch.where(x > 0, g, torch.where(x == 0, 0.5 * g, 0.0)),
+    "none": lambda x, g: g,
+    "exp": lambda x, g: g * torch.exp(x),
+    "sigmoid": lambda x, g: g * torch.sigmoid(x) * (1.0 - torch.sigmoid(x)),
+    "sine": lambda x, g: g * torch.cos(x),
+    "squareplus": lambda x, g: 0.5 * g * (1.0 + x / torch.sqrt(x * x + 4.0)),
+    "softplus": lambda x, g: g * torch.sigmoid(x),
+}
 MAX_LAYERS = 8
 MAX_WIDTH = 256
 
@@ -49,19 +61,38 @@ def _mlp_math(x, weights, activation, output_activation):
     return h
 
 
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
 def fused_mlp_reference(x, weights, activation="relu", output_activation="none"):
     """Plain PyTorch version of the kernel (the reference's golden)."""
-    return _mlp_math(
-        x.to(torch.bfloat16).float(),
-        [w.to(torch.bfloat16).float() for w in weights],
-        activation,
-        output_activation,
-    )
+    return _mlp_math(_bf16(x), [_bf16(w) for w in weights], activation,
+                     output_activation)
+
+
+def _mlp_backward(x, weights, g, activation, output_activation):
+    """(dx, [dW]) of the reference's VJP of `_mlp_math` on bf16-rounded x
+    and weights. Each dot's transpose returns its cotangent in its operand's
+    dtype, bf16: every dh and dW is rounded to bf16, then taken back to f32."""
+    hs = [_bf16(x)]
+    ws = [_bf16(w) for w in weights]
+    pres = []
+    for i, w in enumerate(ws):
+        pres.append(hs[-1] @ w)
+        if i < len(ws) - 1:
+            hs.append(_bf16(_ACTIVATIONS[activation](pres[-1])))
+    gp = _ACT_GRADS[output_activation](pres[-1], g.float())
+    dws = [None] * len(ws)
+    for i in range(len(ws) - 1, -1, -1):
+        dws[i] = _bf16(hs[i].T @ gp)
+        dh = _bf16(gp @ ws[i].T)
+        if i > 0:
+            gp = _ACT_GRADS[activation](pres[i - 1], dh)
+    return dh.to(x.dtype), [dw.to(w.dtype) for dw, w in zip(dws, weights)]
 
 
 def _check(x, weights, activation, output_activation):
-    if x.requires_grad or any(w.requires_grad for w in weights):
-        raise unported("fused_mlp backward", "B1")
     if activation not in _ACTIVATIONS or output_activation not in _ACTIVATIONS:
         raise ValueError(
             f"activations must be in {sorted(_ACTIVATIONS)}, got "
@@ -81,16 +112,9 @@ def _check(x, weights, activation, output_activation):
     return dims
 
 
-def fused_mlp(x, weights, activation="relu", output_activation="none"):
-    """x: (N, D_in) -> (N, D_out) float32 through the fused layer stack.
-
-    weights: list of (D_i, D_{i+1}) tensors, at most 8, every width <= 256.
-    On a CUDA tensor this launches the kernel on the current stream and adds
-    one to `fused_mlp.launches`; on a CPU tensor it runs the plain version."""
-    dims = _check(x, weights, activation, output_activation)
-    if x.device.type == "cpu":
-        return fused_mlp_reference(x, weights, activation, output_activation)
-    if x.device.type != "cuda" or any(w.device != x.device for w in weights):
+def _launch(x, weights, dims, activation, output_activation):
+    """Run the kernel on x's CUDA device; adds one to `fused_mlp.launches`."""
+    if any(w.device != x.device for w in weights):
         raise ValueError("fused_mlp needs x and every weight on one CUDA device")
     from nerfnav_tpu_torch import kernels
 
@@ -115,6 +139,39 @@ def fused_mlp(x, weights, activation="relu", output_activation="none"):
         raise RuntimeError(f"fused_mlp kernel launch failed: CUDA error {err}")
     fused_mlp.launches += 1
     return out
+
+
+class _FusedMLP(torch.autograd.Function):
+    """The kernel's forward (the plain version for a CPU tensor) and the
+    reference's recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, activation, output_activation, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.acts = (activation, output_activation)
+        if x.device.type == "cpu":
+            return fused_mlp_reference(x, weights, activation, output_activation)
+        if x.device.type != "cuda":
+            raise ValueError("fused_mlp needs x and every weight on one CUDA device")
+        dims = [x.shape[1]] + [w.shape[1] for w in weights]
+        return _launch(x, weights, dims, activation, output_activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        dx, dws = _mlp_backward(x, weights, g, *ctx.acts)
+        return (dx, None, None, *dws)
+
+
+def fused_mlp(x, weights, activation="relu", output_activation="none"):
+    """x: (N, D_in) -> (N, D_out) float32 through the fused layer stack.
+
+    weights: list of (D_i, D_{i+1}) tensors, at most 8, every width <= 256.
+    On a CUDA tensor the forward launches the kernel on the current stream
+    and adds one to `fused_mlp.launches`; on a CPU tensor it runs the plain
+    version. Differentiable in x and the weights (see `_mlp_backward`)."""
+    _check(x, weights, activation, output_activation)
+    return _FusedMLP.apply(x, activation, output_activation, *weights)
 
 
 fused_mlp.launches = 0

@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid encoding (Instant-NGP), forward.
+"""Multiresolution hash-grid encoding (Instant-NGP), differentiable.
 
 Counterpart of nerfnav_tpu/ops/hashgrid.py: the same level schedule, table
 layouts ("corner": one F-wide row per lattice vertex, 8 gathers per point and
@@ -7,8 +7,13 @@ level; "cell": one 8F-wide row per cell, 1 gather), lattice conventions
 
 Index math runs in int64 and is cut to 32 bits after every product, so the
 hashes match the reference's uint32 arithmetic bit for bit: the primes
-exceed int32. The gather is plain torch indexing here; its CUDA kernel is a
-later slice (ROADMAP B2). The table backward arrives with training.
+exceed int32. The gather is plain torch `index_select`, so autograd gives the
+table gradient as an `index_add_` of the weighted output gradients (the
+reference's "xla" backward) and dy/dx through the trilinear weights. The
+reference's "sort" backward sums the same rows in another order (a sorted
+segment sum); the port computes it as "xla" does. With bf16 table compute the
+gradient is accumulated in bf16 and cast back to f32 once per table, as in
+the reference. Hand kernels for both directions are ROADMAP B2.
 """
 
 from dataclasses import dataclass
@@ -36,7 +41,7 @@ class HashGridConfig:
     desired_resolution: int | None = None  # overrides per_level_scale when set
     gridtype: str = "hash"  # "hash" | "tiled"
     layout: str = "corner"  # "corner" | "cell"
-    backward: str = "xla"  # table-gradient strategy; training only
+    backward: str = "xla"  # "xla" | "sort": both run the index_add_ gradient
     coord_convention: str = "vertex"  # "vertex" | "ngp"
     table_compute_dtype: str = "float32"  # "float32" | "bfloat16"
 
@@ -168,7 +173,10 @@ def hash_grid_encode(table, x: torch.Tensor, config: HashGridConfig,
     num_corners = 2**d
     x01 = (x.float() + bound) / (2.0 * bound)
     in_bounds = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1)
-    x01c = x01.clamp(0.0, 1.0)
+    # maximum/minimum, not clamp: like jnp.clip they pass half the gradient
+    # at a point exactly on the boundary
+    zero = torch.zeros((), device=x.device)
+    x01c = torch.minimum(torch.maximum(x01, zero), zero + 1.0)
     bits = torch.as_tensor(_corner_bits(d), device=x.device)
     hi = bits > 0.5
 
@@ -189,11 +197,13 @@ def hash_grid_encode(table, x: torch.Tensor, config: HashGridConfig,
         w = torch.where(hi[None], frac[:, None, :], 1.0 - frac[:, None, :]).prod(dim=-1)
         if config.layout == "cell":
             idx = _cell_indices(config, level, pf.long())
-            feats = lvl_table[idx].reshape(n, num_corners, config.level_dim)
+            feats = lvl_table.index_select(0, idx).reshape(n, num_corners,
+                                                           config.level_dim)
         else:
             corners = pf.long()[:, None, :] + bits.long()[None]
             idx = _corner_indices(config, level, corners)
-            feats = lvl_table[idx.reshape(-1)].reshape(n, num_corners, config.level_dim)
+            feats = lvl_table.index_select(0, idx.reshape(-1)).reshape(
+                n, num_corners, config.level_dim)
         outs.append((feats.float() * w[..., None]).sum(dim=1))
     out = torch.cat(outs, dim=-1)
     return out * in_bounds[:, None].to(out.dtype)

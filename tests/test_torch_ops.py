@@ -43,8 +43,12 @@ def test_trunc_exp():
     x = np.linspace(-20, 20, 101, dtype=np.float32)
     np.testing.assert_allclose(tact.trunc_exp(torch.as_tensor(x)).numpy(),
                                _np(jact.trunc_exp(jnp.asarray(x))), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        tact.trunc_exp(torch.zeros(3, requires_grad=True))
+    # differentiable, with the reference's clamped derivative
+    xt = torch.as_tensor(x).requires_grad_()
+    tact.trunc_exp(xt).sum().backward()
+    np.testing.assert_allclose(
+        xt.grad.numpy(), _np(jax.grad(lambda v: jact.trunc_exp(v).sum())(jnp.asarray(x))),
+        rtol=1e-6)
 
 
 @pytest.mark.parametrize("degree", range(1, 9))
@@ -175,8 +179,14 @@ def test_fused_mlp_rejects_what_the_kernel_cannot_take():
         tfm.fused_mlp(x, [torch.zeros(8, 300), torch.zeros(300, 4)])
     with pytest.raises(ValueError, match="does not follow"):
         tfm.fused_mlp(x, [torch.zeros(8, 16), torch.zeros(8, 4)])
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        tfm.fused_mlp(x.requires_grad_(), [torch.zeros(8, 4)])
+    # an input that requires grad now takes the reference's backward
+    w = torch.full((8, 4), 0.5, requires_grad=True)
+    xg = torch.ones(4, 8, requires_grad=True)
+    tfm.fused_mlp(xg, [w]).sum().backward()
+    _, vjp = jax.vjp(jfm.fused_mlp_reference, jnp.ones((4, 8)), [jnp.full((8, 4), 0.5)])
+    dxj, (dwj,) = vjp(jnp.ones((4, 4)))
+    np.testing.assert_array_equal(xg.grad.numpy(), _np(dxj))
+    np.testing.assert_array_equal(w.grad.numpy(), _np(dwj))
 
 
 def test_morton_packing_exact():
