@@ -1,9 +1,10 @@
 """Occupancy-grid ray marching: the block-packed two-phase marcher.
 
-Counterpart of nerfnav_tpu/ops/marching.py, restricted to the branch the
-eval render runs: `march_rays_block` with the uniform (dt_gamma == 0) phase-A
-ladder, beam-shared phase A (MarchConfig.beam > 1) and the exact phase B,
-deterministic (key=None).
+Counterpart of nerfnav_tpu/ops/marching.py, restricted to the branches the
+eval render and the train step run: `march_rays_block` with the uniform
+(dt_gamma == 0) phase-A ladder, normalized (eval) or fixed (training),
+beam-shared phase A (MarchConfig.beam > 1) and the exact phase B, without or
+with a march key (random start, stratified or per-ray-hash stride phase).
 
 Phase A walks a per-ray ladder of coarse segments against the block-packed
 coarse occupancy table and keeps the first K_A occupied segments; phase B
@@ -11,14 +12,17 @@ subdivides them at dt_min against the fine block table and keeps the first
 K occupied samples. Outputs (z, dt, valid), each (N, K), match the reference
 exactly: valid bit for bit, z/dt to float32 rounding.
 
-The other marchers (byte bitfields), dt_gamma > 0, the phase-A0 prefilter,
-first-K and proxy termination, random phases, crops and depth windows raise
-NotImplementedError (ROADMAP A6). Its CUDA kernel is ROADMAP B2.
+JAX draws a march's randomness from its key; here it is a `MarchKey` of
+tensors (`draw_march_key` draws one from a torch.Generator), so a test can
+inject the JAX draws. The other marchers (byte bitfields), dt_gamma > 0, the
+phase-A0 prefilter, first-K and proxy termination, crops and depth windows
+raise NotImplementedError (ROADMAP A6). Its CUDA kernel is ROADMAP B2.
 """
 
 from dataclasses import dataclass, replace
 from functools import cached_property
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,6 +33,24 @@ from nerfnav_tpu_torch.ops.morton import (
 )
 
 _SQRT3 = math.sqrt(3.0)
+_U32 = 0xFFFFFFFF
+_HASH_PRIMES = (2654435761, 805459861, 3674653429)
+
+
+class MarchKey(NamedTuple):
+    """The random draws of one keyed march: u (N,) uniform in [0, 1) shifts
+    each ray's start by u * dt_min; phase (N, 1) int64 raw draws in
+    [0, 2^30) pick the stride phase of an overflowing ray (phase % stride).
+    The "ray_hash" stride phase ignores `phase`."""
+    u: torch.Tensor
+    phase: torch.Tensor
+
+
+def draw_march_key(generator, n: int, device) -> MarchKey:
+    """A MarchKey for n rays from a torch.Generator on `device`."""
+    return MarchKey(
+        u=torch.rand((n,), generator=generator, device=device),
+        phase=torch.randint(0, 2**30, (n, 1), generator=generator, device=device))
 
 
 @dataclass(frozen=True)
@@ -107,6 +129,27 @@ class MarchConfig:
         return np.asarray(taus, np.float32), np.asarray(dtcs, np.float32)
 
 
+def _mul_u32(a, p: int):
+    """(a * p) mod 2^32 for int64 a in [0, 2^32) without int64 overflow."""
+    lo = (a & 0xFFFF) * p
+    hi = ((a >> 16) * p) & 0xFFFF
+    return (lo + (hi << 16)) & _U32
+
+
+def _ray_hash_u(rays_d):
+    """Deterministic per-ray uniform in [0, 1) from the direction bits
+    (MarchConfig.stride_phase "ray_hash"), the reference's uint32 hash in
+    int64 arithmetic cut to 32 bits."""
+    bits = rays_d.float().contiguous().view(torch.int32).long() & _U32
+    h = _mul_u32(bits[:, 0], _HASH_PRIMES[0])
+    h = h ^ _mul_u32(bits[:, 1], _HASH_PRIMES[1])
+    h = h ^ _mul_u32(bits[:, 2], _HASH_PRIMES[2])
+    h = h ^ (h >> 16)
+    h = _mul_u32(h, 2654435761)
+    h = h ^ (h >> 13)
+    return (h >> 8).float() * 2.0**-24
+
+
 def _mip_from_dt_static(dt, grid_size: int) -> np.ndarray:
     return np.maximum(
         np.ceil(np.log2(np.maximum(np.asarray(dt) * grid_size * 0.5, 1e-9))), 0
@@ -164,19 +207,27 @@ def near_far_aabb(rays_o, rays_d, bound: float, min_near: float, crop_aabb=None)
     return near, far
 
 
-def _compact_idx(occ, k: int, spread: bool = True):
+def _compact_idx(occ, k: int, spread: bool = True, phase=None, phase_u=None):
     """Keep k of each ray's True candidates under a static budget.
 
     occ: (N, T) bool. Returns (idx (N, k) int64 positions of the kept
     candidates, valid (N, k) bool, stride (N, 1) int64 dt scale). With more
-    than k candidates every stride-th is kept, stride = ceil(count / k)."""
+    than k candidates every stride-th is kept, stride = ceil(count / k),
+    starting at the stride phase: phase_u (N,) uniform in [0, 1) gives
+    floor(u * stride), phase (N, 1) raw draws give phase % stride, else 0."""
     n, t = occ.shape
     cs = torch.cumsum(occ.long(), dim=1)
     stride = torch.ones((n, 1), dtype=torch.int64, device=occ.device)
     if spread:
         cnt = cs[:, -1:]
         stride = torch.clamp((cnt + k - 1) // k, min=1)
-        occ = occ & ((cs - 1) % stride == 0)
+        if phase_u is not None:
+            start = torch.minimum((phase_u[:, None] * stride.float()).long(), stride - 1)
+        elif phase is not None:
+            start = phase % stride
+        else:
+            start = 0
+        occ = occ & ((cs - 1) % stride == start)
         cs = torch.cumsum(occ.long(), dim=1)
     targets = torch.arange(1, k + 1, device=occ.device)
     # the j-th kept candidate sits at the count of positions with cs < j+1;
@@ -346,7 +397,7 @@ def dilate_blocks_coarse(blocks_coarse, hc: int, bc: int):
     return pack_blocks(g.reshape(casc, -1), hc, block=bc)
 
 
-def _check_block_options(cfg: MarchConfig, key, crop_aabb, z_window, stop_after,
+def _check_block_options(cfg: MarchConfig, crop_aabb, z_window, stop_after,
                          phase_a):
     if cfg.dt_gamma > 0.0:
         raise unported("dt_gamma > 0 (static gamma ladder)", "A6")
@@ -358,8 +409,6 @@ def _check_block_options(cfg: MarchConfig, key, crop_aabb, z_window, stop_after,
         raise unported("first_k compaction", "A6")
     if cfg.coarse_first_k:
         raise unported("coarse_first_k compaction", "A6")
-    if key is not None:
-        raise unported("a march key (random start and stride phase)", "A6")
     if crop_aabb is not None:
         raise unported("crop_aabb", "A6")
     if z_window is not None:
@@ -375,9 +424,9 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
     """Two-phase march against block-packed occupancy rows.
 
     blocks: (cascades, (H/4)^3, 2) int64 words; blocks_coarse: (cascades,
-    (H/cf/bc)^3, bc^3/32) int64 words. Returns {"z", "dt", "valid", "near",
-    "far"} with (N, K) samples."""
-    _check_block_options(cfg, key, crop_aabb, z_window, stop_after, phase_a)
+    (H/cf/bc)^3, bc^3/32) int64 words; key: a MarchKey or None. Returns
+    {"z", "dt", "valid", "near", "far"} with (N, K) samples."""
+    _check_block_options(cfg, crop_aabb, z_window, stop_after, phase_a)
     n = rays_o.shape[0]
     h = cfg.grid_size
     hc = h // cfg.coarse_factor
@@ -406,6 +455,8 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
             g_b = d
 
     near, far = near_far_aabb(rays_o, rays_d, cfg.bound, cfg.min_near)
+    if key is not None:
+        near = near + key.u * dt
     k_a = cfg.coarse_segments
     tbl_coarse = blocks_coarse.reshape(-1, blocks_coarse.shape[-1])
 
@@ -454,7 +505,14 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
     if mB > 1:
         # a beam segment can start before this member's own AABB entry
         occ_b = occ_b & (z_b >= near[:, None])
-    idx_b, valid, stride_b = _compact_idx(occ_b, cfg.samples_per_ray)
+    phase = phase_u = None
+    if key is not None:
+        if cfg.stride_phase == "ray_hash":
+            phase_u = _ray_hash_u(rays_d)
+        else:
+            phase = key.phase
+    idx_b, valid, stride_b = _compact_idx(occ_b, cfg.samples_per_ray,
+                                          phase=phase, phase_u=phase_u)
     seg = idx_b // mult
     off = (idx_b % mult).float()
     za_sel = _select_minor(za_buf, seg, k_a)

@@ -221,3 +221,56 @@ def test_march_rays_block_matches(beam, bound, monkeypatch):
     for key in ("near", "far"):
         np.testing.assert_allclose(mt[key].numpy(), np.asarray(mj[key]),
                                    rtol=0, atol=1e-5)
+
+
+def test_ray_hash_u_exact():
+    """The per-ray stride-phase hash, bit for bit, on directions whose float
+    bits span the whole uint32 range."""
+    _, d = camera_rays(16, 1.0)
+    d = np.concatenate([d, -d, np.random.default_rng(2).normal(size=(64, 3))]).astype(np.float32)
+    np.testing.assert_array_equal(tm._ray_hash_u(_to_t(d)).numpy(),
+                                  np.asarray(jm._ray_hash_u(jnp.asarray(d))))
+
+
+_COMPACT_KEYED = jax.jit(
+    lambda occ, key, phase_u, k, spread, f=jm._compact_idx: f(
+        occ, k, spread, key=key, phase_u=phase_u),
+    static_argnums=(3, 4))
+
+
+@pytest.mark.parametrize("dt_mult", [1, 8])
+@pytest.mark.parametrize("stride_phase", ["random", "ray_hash"])
+def test_march_with_key_matches(stride_phase, dt_mult, monkeypatch):
+    """The training march: the fixed phase-A ladder with 3 anchors, the
+    annealed step (max_steps // dt_mult, at least 8), a random start and a
+    stratified or per-ray-hash stride phase. The JAX march draws from its
+    key; the port gets the same draws as a MarchKey. valid exact, z/dt to
+    rtol 1e-6."""
+    bound, grid = 2.0, 32
+    occ, _ = shell_occupancy(grid, 2)
+    kw = dict(bound=bound, grid_size=grid, max_steps=max(256 // dt_mult, 8),
+              samples_per_ray=8, min_near=0.05, coarse_segments=16, coarse_anchors=3,
+              coarse_normalized=False, stride_phase=stride_phase)
+    cfg_j, cfg_t = jm.MarchConfig(**kw), tm.MarchConfig(**kw)
+    o, d = camera_rays(16, bound, focal=20.0, seed=dt_mult)
+    key = jax.random.PRNGKey(dt_mult)
+    k_start, k_phase = jax.random.split(key)
+    mkey = tm.MarchKey(
+        u=_to_t(jax.random.uniform(k_start, (o.shape[0],))),
+        phase=_to_t(jax.random.randint(k_phase, (o.shape[0], 1), 0, 2**30)).long())
+    _jit_exact_helpers(monkeypatch)
+    monkeypatch.setattr(
+        jm, "_compact_idx",
+        lambda occ, k, spread=True, key=None, phase_u=None, **kw: _COMPACT_KEYED(
+            occ, key, phase_u, k, spread))
+    mj = jm.march(jnp.asarray(o), jnp.asarray(d), {k: jnp.asarray(v) for k, v in occ.items()},
+                  cfg_j, key=key)
+    mt = tm.march(_to_t(o), _to_t(d), occupancy_from_numpy(occ, device="cpu"), cfg_t,
+                  key=mkey)
+    vj = np.asarray(mj["valid"])
+    assert vj.sum() > 100 and (np.asarray(mj["dt"]).max(1) > cfg_j.dt_min * 1.5).any()
+    np.testing.assert_array_equal(mt["valid"].numpy(), vj)
+    for k in ("z", "dt"):
+        np.testing.assert_allclose(mt[k].numpy(), np.asarray(mj[k]), rtol=1e-6, atol=0)
+    unkeyed = tm.march(_to_t(o), _to_t(d), occupancy_from_numpy(occ, device="cpu"), cfg_t)
+    assert not torch.equal(unkeyed["z"], mt["z"])  # the key moved the samples
