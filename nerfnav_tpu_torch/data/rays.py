@@ -1,13 +1,58 @@
-"""Ray generation from camera poses (eval half).
+"""Ray generation from camera poses.
 
 Counterpart of nerfnav_tpu/data/rays.py. Camera convention: pixel
 directions (x=(i+0.5-cx)/fx, y=(j+0.5-cy)/fy, z=1) in the camera frame,
-rotated by pose[:3, :3]; origins are pose[:3, 3]. Random ray sampling
-(`get_rays`, `get_rays_at`) arrives with training (ROADMAP A7).
+rotated by pose[:3, :3]; origins are pose[:3, 3]. `get_rays` samples a
+training batch from explicit draws (`RayDraws`, made by `draw_rays` from a
+torch.Generator), so a test can inject the JAX package's draws.
+`get_rays_at` (the nav stack's) is ROADMAP A7.
 """
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+EMAP_SIDE = 128  # error-map bins per image side (reference utils.py:78-98)
+
+
+class RayDraws(NamedTuple):
+    """The random draws of one ray batch: uniform flat pixel indices (n,),
+    or, with an error map, coarse bins (n,) drawn in proportion to the
+    error and a jitter (n, 2) uniform in [0, 1) inside each bin."""
+    inds: Optional[torch.Tensor] = None
+    bins: Optional[torch.Tensor] = None
+    jitter: Optional[torch.Tensor] = None
+
+
+def draw_rays(generator, n_rays: int, H: int, W: int, error_map=None,
+              device=None) -> RayDraws:
+    """RayDraws for get_rays from a torch.Generator: randint over the
+    pixels, or a categorical draw over the bins with weights error_map +
+    1e-8 (the reference's categorical over log(error_map + 1e-8))."""
+    if error_map is None:
+        return RayDraws(inds=torch.randint(0, H * W, (n_rays,), generator=generator,
+                                           device=device))
+    bins = torch.multinomial(error_map + 1e-8, n_rays, replacement=True,
+                             generator=generator)
+    return RayDraws(bins=bins, jitter=torch.rand((n_rays, 2), generator=generator,
+                                                 device=error_map.device))
+
+
+def get_rays(pose, intrinsics, H: int, W: int, draws: RayDraws, error_map=None):
+    """World-space rays of a sampled pixel batch: {"rays_o", "rays_d" (n, 3),
+    "inds" (n,) flat pixel indices}. With an error map the pixels come from
+    the draws' coarse bins plus jitter, else from its uniform indices."""
+    if error_map is None:
+        inds = draws.inds
+    else:
+        cy, cx = draws.bins // EMAP_SIDE, draws.bins % EMAP_SIDE
+        fy = torch.clamp(((cy.float() + draws.jitter[:, 0]) / EMAP_SIDE * H).long(), 0, H - 1)
+        fx = torch.clamp(((cx.float() + draws.jitter[:, 1]) / EMAP_SIDE * W).long(), 0, W - 1)
+        inds = fy * W + fx
+    j, i = inds // W, inds % W
+    rays = _to_world(_pixel_dirs(i.float(), j.float(), intrinsics), pose)
+    return {**rays, "inds": inds}
 
 
 def _pixel_dirs(i, j, intrinsics):

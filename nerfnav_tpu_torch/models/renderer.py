@@ -1,11 +1,11 @@
-"""Volume rendering over the occupancy grid: the early-terminating rounds path.
+"""Volume rendering over the occupancy grid.
 
 Counterpart of nerfnav_tpu/models/renderer.py (`Field`, `make_field`,
-`near_far_from_aabb`, `composite`, `render_rays_grid_rounds`). The reference
-wraps every round in a `lax.cond`; eagerly those are Python branches on the
-alive count, one host read per round. The dense differentiable path, the
-single-shot grid path and the packed training shade arrive with ROADMAP A4
-and A7.
+`near_far_from_aabb`, `composite`, `render_rays_grid` with its dense and
+point-budget packed shades, `render_rays_grid_rounds`). The reference wraps
+every round of the eval renderer in a `lax.cond`; eagerly those are Python
+branches on the alive count, one host read per round. The dense
+differentiable path (`render_rays`) is ROADMAP A4.
 """
 
 from dataclasses import dataclass
@@ -99,6 +99,104 @@ def composite(sigmas, rgbs, deltas, z_vals, density_scale: float = 1.0):
 
 def _unit(v):
     return v / torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+
+
+def _clip(x, lo: float, hi: float):
+    """jnp.clip with its gradient: maximum/minimum pass half of it at a tie,
+    where torch.clamp passes all."""
+    lo_t = torch.full((), lo, device=x.device, dtype=x.dtype)
+    return torch.minimum(torch.maximum(x, lo_t), lo_t + (hi - lo))
+
+
+def render_rays_grid(field: Field, occupancy, mcfg, rays_o, rays_d, key=None,
+                     bg_color=1.0, sample_budget=None, crop_aabb=None,
+                     sample_groups: int = 1):
+    """Occupancy-grid rendering in one shot, the training render.
+
+    March (without gradient, like the reference's stop_gradient), shade the
+    (N, K) samples densely or, with `sample_budget` < N*K, only the first
+    `sample_budget` valid samples packed ray by ray (the rest are dropped
+    tail first), composite, add the background. key: a MarchKey or None;
+    bg_color: scalar, (3,) or (N, 3). Returns {"image", "depth",
+    "weights_sum", "n_samples"}; n_samples is the valid count before the
+    budget, a 0-d tensor."""
+    from nerfnav_tpu_torch.ops.marching import march
+
+    if sample_groups != 1:
+        raise unported("sample_groups > 1 (per-shard packing under a mesh)", "A11")
+    if field.bg_fn is not None and field.bg_radius > 0:
+        raise unported("background network compositing", "A3")
+    n = rays_o.shape[0]
+    with torch.no_grad():
+        m = march(rays_o, rays_d, occupancy, mcfg, key=key, crop_aabb=crop_aabb)
+    z, dt, valid = m["z"], m["dt"], m["valid"]
+    k = z.shape[1]
+    n_samples = valid.sum()
+    if sample_budget is not None and sample_budget < n * k:
+        sigmas, rgbs = _shade_packed(field, rays_o, rays_d, z, valid,
+                                     sample_budget, mcfg.bound)
+    else:
+        sigmas, rgbs = _shade_dense(field, rays_o, rays_d, z, valid, mcfg.bound)
+    image, depth, weights_sum, _ = composite(sigmas, rgbs, dt, z, field.density_scale)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device)
+    image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
+    return {"image": image, "depth": depth, "weights_sum": weights_sum,
+            "n_samples": n_samples}
+
+
+def _shade_dense(field: Field, rays_o, rays_d, z, valid, bound: float):
+    """Field over the full (N, K) lattice: density at o + d z (invalid slots
+    zeroed), color from each ray's direction encoded once."""
+    n, k = z.shape
+    pos = torch.clamp(rays_o[:, None, :] + rays_d[:, None, :] * z[..., None], -bound, bound)
+    sigmas, geo = field.density_fn(pos.reshape(-1, 3))
+    sigmas = torch.where(valid.reshape(-1), sigmas, 0.0).reshape(n, k)
+    hd = field.encode_dir_fn(_unit(rays_d))
+    e = hd.shape[-1]
+    rgbs = field.color_enc_fn(hd[:, None, :].expand(n, k, e).reshape(-1, e), geo)
+    return sigmas, rgbs.reshape(n, k, 3)
+
+
+def _pack_indices(valid, budget: int):
+    """Packed slot -> (ray r, in-ray position j, slot in use) for a per-ray
+    prefix mask (N, K): (budget,) int64, int64, bool. Each ray's id and its
+    segment start are written at the start, and a running max (cummax)
+    fills each segment; a ray with no samples shares its start with the
+    next ray, which the max resolves to the later one."""
+    n, _ = valid.shape
+    counts = valid.sum(dim=1)
+    offsets = torch.cumsum(counts, 0) - counts
+    total = offsets[-1] + counts[-1]
+    at = torch.clamp(offsets, max=budget)  # starts past the budget drop
+    seg_ray = torch.zeros(budget + 1, dtype=torch.int64, device=valid.device)
+    seg_ray.scatter_reduce_(0, at, torch.arange(n, device=valid.device), "amax")
+    seg_off = torch.zeros(budget + 1, dtype=torch.int64, device=valid.device)
+    seg_off.scatter_reduce_(0, at, offsets, "amax")
+    r = torch.cummax(seg_ray[:budget], 0).values
+    p = torch.arange(budget, device=valid.device)
+    return r, p - torch.cummax(seg_off[:budget], 0).values, p < total
+
+
+def _shade_packed(field: Field, rays_o, rays_d, z, valid, budget: int, bound: float):
+    """Field over a packed buffer of the first `budget` valid samples (valid
+    is a per-ray prefix), scattered back into the dense (N, K) layout for the
+    unchanged composite. A packed sample whose dense slot is invalid shades
+    nothing (the reference's defence against a mask that is no prefix)."""
+    n, k = z.shape
+    r, j, pvalid = _pack_indices(valid, budget)
+    flat = torch.clamp(r * k + j, 0, n * k - 1)
+    zp = z.reshape(-1)[flat]
+    pvalid_slot = valid.reshape(-1)[flat]
+    hd = field.encode_dir_fn(_unit(rays_d))
+    rb = torch.cat([rays_o, rays_d, hd], dim=-1)[r]
+    pos = torch.clamp(rb[:, :3] + rb[:, 3:6] * zp[:, None], -bound, bound)
+    sig_p, geo_p = field.density_fn(pos)
+    sig_p = torch.where(pvalid & pvalid_slot, sig_p, 0.0)
+    rgb_p = field.color_enc_fn(rb[:, 6:], geo_p)
+    vals = torch.cat([sig_p[:, None], rgb_p], dim=-1)
+    tgt = torch.where(pvalid, flat, n * k)  # unused slots land in a spare row
+    buf = torch.zeros((n * k + 1, 4), device=z.device).index_put((tgt,), vals)[: n * k]
+    return buf[:, 0].reshape(n, k), buf[:, 1:].reshape(n, k, 3)
 
 
 def render_rays_grid_rounds(field: Field, occupancy, mcfg, rays_o, rays_d,

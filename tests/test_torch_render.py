@@ -222,3 +222,108 @@ def test_beam_rules_match(tmp_path):
         for f in (20.0, 64.0, 800.0, 1000.0, 3000.0):
             intr = np.asarray([f, f * 1.1, 400, 400], np.float32)
             assert tt._auto_beam(intr) == tj._auto_beam(intr)
+
+
+def _to_np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("error_map", [False, True])
+def test_get_rays_match(error_map):
+    """get_rays from the JAX key's draws: pixel indices exact, rays within
+    1e-6."""
+    H, W, n = 40, 56, 300
+    intr = np.asarray([50.0, 48.0, 27.5, 20.0], np.float32)
+    rng = np.random.default_rng(3)
+    pose = POSE.copy()
+    pose[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    key = jax.random.PRNGKey(11)
+    emap = rng.uniform(0.01, 1.0, 128 * 128).astype(np.float32) if error_map else None
+    rj = jrays.get_rays(jnp.asarray(pose), jnp.asarray(intr), H, W, n, key,
+                        None if emap is None else jnp.asarray(emap))
+    if emap is None:
+        draws = trays.RayDraws(inds=torch.as_tensor(np.array(
+            jax.random.randint(key, (n,), 0, H * W))).long())
+    else:
+        k1, k2 = jax.random.split(key)
+        bins = jax.random.categorical(k1, jnp.log(jnp.asarray(emap) + 1e-8), shape=(n,))
+        draws = trays.RayDraws(bins=torch.as_tensor(np.array(bins)).long(),
+                               jitter=torch.as_tensor(np.array(
+                                   jax.random.uniform(k2, (n, 2)))))
+    rt = trays.get_rays(torch.as_tensor(pose), torch.as_tensor(intr), H, W, draws,
+                        None if emap is None else torch.as_tensor(emap))
+    np.testing.assert_array_equal(rt["inds"].numpy(), np.asarray(rj["inds"]))
+    for k in ("rays_o", "rays_d"):
+        np.testing.assert_allclose(rt[k].numpy(), np.asarray(rj[k]), rtol=0, atol=1e-6)
+    # the run-time draws: a seeded generator, in range, error-weighted
+    gen = torch.Generator().manual_seed(0)
+    d = trays.draw_rays(gen, 4096, H, W, None if emap is None else torch.as_tensor(emap))
+    inds = trays.get_rays(torch.as_tensor(pose), torch.as_tensor(intr), H, W, d,
+                          None if emap is None else torch.as_tensor(emap))["inds"]
+    assert 0 <= int(inds.min()) and int(inds.max()) < H * W
+
+
+def test_pack_indices_exact():
+    """Packed slot -> (ray, position) against the JAX scatter-max form, with
+    empty rays and a budget below and above the valid count."""
+    rng = np.random.default_rng(5)
+    counts = rng.integers(0, 9, 64)
+    counts[[0, 5, 6, 63]] = 0
+    valid = np.arange(8)[None, :] < counts[:, None]
+    pack_j = jax.jit(jrend._pack_indices, static_argnums=1)
+    for budget in (50, int(counts.sum()), 600):
+        for a, b in zip(trend._pack_indices(torch.as_tensor(valid), budget),
+                        pack_j(jnp.asarray(valid), budget)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("budget", [None, 1024, 2048])
+def test_render_rays_grid_with_grads(budget, monkeypatch):
+    """The training render, xla fp32 field, dense and packed at budgets below
+    and above the valid count: image, depth and the gradients of both w.r.t.
+    every param within 1e-5 (of each tensor's largest entry). Both shade the
+    port's keyed march, which test_torch_march.py holds against the JAX one."""
+    kw = _net_cfg(bound=2.0, density_scale=8.0)
+    pj, pt = _params(kw)
+    occ, _ = shell_occupancy(32, 2)
+    mkw = dict(bound=2.0, grid_size=32, max_steps=256, samples_per_ray=16,
+               min_near=0.05, coarse_normalized=False)
+    o, d = camera_rays(16, 2.0, focal=14.0)
+    n = o.shape[0]
+    rng = np.random.default_rng(7)
+    mkey = tm.MarchKey(u=torch.as_tensor(rng.random(n, dtype=np.float32)),
+                       phase=torch.as_tensor(rng.integers(0, 2**30, (n, 1))))
+    occ_t = occupancy_from_numpy(occ, device="cpu")
+    m_t = tm.march(torch.as_tensor(o), torch.as_tensor(d), occ_t, tm.MarchConfig(**mkw),
+                   key=mkey)
+    n_valid = int(m_t["valid"].sum())
+    assert 1024 < n_valid < 2048 < n * 16
+    monkeypatch.setattr(jm, "march", lambda *a, **k: {
+        key: jnp.asarray(v.numpy()) for key, v in m_t.items()})
+    bg = rng.random((n, 3), dtype=np.float32)
+    wi = rng.normal(size=(n, 3)).astype(np.float32)
+    wd = rng.normal(size=(n,)).astype(np.float32)
+
+    def loss_j(p):
+        out = jrend.render_rays_grid(jrend.make_field(p, jnet.NetworkConfig(**kw)), None,
+                                     jm.MarchConfig(**mkw), jnp.asarray(o), jnp.asarray(d),
+                                     bg_color=jnp.asarray(bg), sample_budget=budget)
+        return jnp.sum(out["image"] * wi) + jnp.sum(out["depth"] * wd), out
+
+    # jitted: the march is the port's either way, and one compile beats
+    # hundreds of op-by-op ones
+    (_, oj), gj = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(pj)
+    leaves = [t.requires_grad_() for k in sorted(pt) for t in pt[k]]
+    ot = trend.render_rays_grid(trend.make_field(pt, tnet.NetworkConfig(**kw)), occ_t,
+                                tm.MarchConfig(**mkw), torch.as_tensor(o),
+                                torch.as_tensor(d), key=mkey, bg_color=torch.as_tensor(bg),
+                                sample_budget=budget)
+    ((ot["image"] * torch.as_tensor(wi)).sum() + (ot["depth"] * torch.as_tensor(wd)).sum()
+     ).backward()
+    assert int(ot["n_samples"]) == int(oj["n_samples"]) == n_valid
+    for k in ("image", "depth", "weights_sum"):
+        np.testing.assert_allclose(ot[k].detach().numpy(), np.asarray(oj[k]), rtol=0, atol=1e-5)
+    for a, b in zip(leaves, jax.tree_util.tree_leaves(gj)):
+        b = np.asarray(b)
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a.grad.numpy(), b, rtol=0, atol=1e-5 * np.abs(b).max())
