@@ -1,40 +1,61 @@
-"""The Trainer's eval-render half: `render_full`.
+"""The Trainer: the train step, its loop and checkpoints, and the eval render.
 
-Counterpart of nerfnav_tpu/training/trainer.py (`TrainerOptions` and the
-eval methods of `Trainer`, trainer.py:606-644 and :864-1282). A frame is cut
-into 64x64-tile-ordered chunks of `max_ray_batch` rays; each chunk is
-marched with the occupancy-planned phase-A ladder and the AUTO beam, and
-shaded in early-terminating rounds. The chunk loop runs eagerly, so
-`TrainerOptions.eval_scan` and `render_full(frozen=...)`, which shape the
-reference's compiled program, have no effect here.
+Counterpart of nerfnav_tpu/training/trainer.py (`TrainerOptions`, `TrainState`
+and `Trainer`). Training runs the occupancy-grid path (`-O`): each step
+samples rays of one image (`get_rays`), renders them with `render_rays_grid`
+under a march key (densely, or packed to the point budget picked from the
+mean-count EMA), takes the MSE against the image on a random or fixed
+background, and applies Adam(0.9, 0.99, eps 1e-15) at lr 0.1^(t/lr_horizon)
+(the schedule reads the pre-increment count, as optax does), the EMA of the
+params, the error-map EMA and the mean-count EMA. Every 16 steps
+`_maybe_update_occupancy` sweeps the density grid.
 
-Training (the train step, occupancy maintenance, checkpoint writing,
-evaluate/test) arrives with ROADMAP A9.
+The step is two functions, `loss_and_grads` and `apply`, joined by
+`train_step`. JAX's PRNG streams do not match torch's, so every random draw
+of a step (pixels or error-map bins and jitter, the background, the march
+key) and of an occupancy sweep is a tensor argument (`StepDraws`,
+`UpdateDraws`), drawn at run time from the torch.Generator the Trainer owns
+(seeded from opt.seed); the image index comes from numpy's default_rng as in
+the reference. The reference's compiled programs become eager calls: the
+step cache, `scan_steps` (steps here run one at a time, which the reference
+pins as step-identical), `eval_scan` and `render_full(frozen=...)` have no
+effect. The dense path without an occupancy grid, rand_pose / CLIP, device
+meshes, `test` (frame and video writing), `save_mesh` and tensorboard raise
+NotImplementedError naming their ROADMAP item.
 """
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 import logging
+import os
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.data.rays import rays_from_pixels, tile_order
+from nerfnav_tpu_torch.data.rays import (
+    EMAP_SIDE, RayDraws, draw_rays, get_rays, rays_from_pixels, tile_order,
+)
 from nerfnav_tpu_torch.device import resolve_device, unported
 from nerfnav_tpu_torch.models.network import NetworkConfig, init_network
+from nerfnav_tpu_torch.models.occupancy import (
+    draw_update, init_occupancy_state, mark_untrained_grid, update_extra_state,
+)
 from nerfnav_tpu_torch.models.renderer import (
-    RenderConfig, make_field, render_rays_grid_rounds,
+    RenderConfig, make_field, render_rays_grid, render_rays_grid_rounds,
 )
 from nerfnav_tpu_torch.ops.marching import (
-    beam_contract_violation, dilate_blocks_coarse, phase_a_group_of,
-    plan_occupied_ladder,
+    MarchKey, beam_contract_violation, dilate_blocks_coarse, draw_march_key,
+    phase_a_group_of, plan_occupied_ladder,
 )
 from nerfnav_tpu_torch.ops.morton import block_size_of
+from nerfnav_tpu_torch.training import checkpoint as ckpt_lib
+from nerfnav_tpu_torch.training.metrics import PSNRMeter
 
 
 @dataclass
 class TrainerOptions:
-    """Field for field the reference's TrainerOptions (see its comments);
-    this slice reads only the eval_* fields, shade_order and seed."""
+    """Field for field the reference's TrainerOptions (see its comments)."""
     name: str = "ngp"
     workspace: str = "workspace"
     lr: float = 1e-2
@@ -48,7 +69,7 @@ class TrainerOptions:
     use_checkpoint: str = "latest"
     error_map: bool = False
     update_extra_interval: int = 16
-    scan_steps: int = 1
+    scan_steps: int = 1             # steps still run one at a time
     occ_freeze_after: float = 0.0
     occ_thresh_freeze_after: float = 0.0
     seed: int = 0
@@ -73,45 +94,359 @@ class TrainerOptions:
     rand_pose_radius: float = 1.0
     eval_table_dtype: str = "bfloat16"
 
+@dataclass
+class TrainState:
+    """What a train step reads and writes. params are leaf tensors that
+    require grad (the optimizer updates them in place); the Adam moments and
+    count live in `optimizer`; occupancy is the one home of the occupancy
+    grid, which render_full reads too."""
+    params: dict
+    optimizer: torch.optim.Adam
+    ema_params: dict
+    global_step: int = 0
+    error_maps: Optional[torch.Tensor] = None   # (n_images, 128 * 128)
+    occupancy: Optional[dict] = None
+    mean_count: Optional[torch.Tensor] = None   # EMA of valid samples per step
+    stats: dict = field(default_factory=lambda: {
+        "loss": [], "valid_loss": [], "results": [], "best_result": None})
+
+
+class StepDraws(NamedTuple):
+    """The random draws of one train step."""
+    idx: int                  # image index
+    rays: RayDraws
+    bg: torch.Tensor          # (num_rays, 3) background colors
+    march: MarchKey
+
+
+class StepOut(NamedTuple):
+    loss: torch.Tensor        # 0-d
+    per_ray: torch.Tensor     # (num_rays,) MSE per ray
+    n_samples: torch.Tensor   # 0-d valid samples before the point budget
+    grads: list               # one per param, in _leaves order
+    inds: torch.Tensor        # (num_rays,) flat pixel indices
+
+
+def _leaves(params):
+    """The param tensors in the reference's pytree order (sorted keys)."""
+    return [t for k in sorted(params) for t in params[k]]
+
 
 class Trainer:
     def __init__(self, cfg: NetworkConfig, rcfg: RenderConfig,
                  opt: TrainerOptions, params=None, occupancy_cfg=None,
                  march_cfg=None, mesh=None, clip_loss_fn=None, occupancy=None,
                  device="cuda"):
-        """march_cfg + occupancy_cfg enable the occupancy-grid path; the
-        occupancy state itself (the reference keeps it in its TrainState) is
-        passed as `occupancy` or set with `set_occupancy`."""
+        """march_cfg + occupancy_cfg enable the occupancy-grid path. The
+        occupancy state starts as `occupancy` (for instance a loaded
+        checkpoint's), else empty; `set_occupancy` replaces it."""
         if march_cfg is not None and occupancy_cfg is None:
             raise ValueError("march_cfg requires occupancy_cfg")
         if mesh is not None:
-            raise unported("device meshes (data-parallel rendering)", "A11")
+            raise unported("device meshes (data-parallel training and rendering)", "A11")
         if opt.rand_pose >= 0 or clip_loss_fn is not None:
             raise unported("rand_pose / CLIP-guided training", "A11")
+        if opt.tensorboard:
+            raise unported("tensorboard scalars", "A11")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rcfg = rcfg
         self.opt = opt
         self.occupancy_cfg = occupancy_cfg
         self.march_cfg = march_cfg
+        self.workspace = opt.workspace
+        self.ckpt_dir = os.path.join(opt.workspace, "checkpoints")
+        self.log_path = os.path.join(opt.workspace, f"log_{opt.name}.txt")
+        self.lr_horizon = opt.lr_iters or max(1, opt.iters)
+        self.epoch = 0
+        # the init weights come from a CPU generator (same tables on every
+        # device); the step and sweep draws from one on the Trainer's device
+        self._init_gen = torch.Generator().manual_seed(opt.seed)
+        self.gen = torch.Generator(device=self.device).manual_seed(opt.seed)
         if params is None:
-            params = init_network(torch.Generator().manual_seed(opt.seed), cfg,
-                                  device=self.device)
-        self.params = params
-        self.occupancy = None
+            params = init_network(self._init_gen, cfg, device=self.device)
         self._occ_version = 0
-        self._table_cast_cache = None  # (params, cast params)
+        self._params_version = 0
+        self._mean_count_host = 0.0
+        self._pinned_thresh = None
+        self._train_mcfgs = {}         # dt_mult -> training MarchConfig
+        self._fresh = True             # no train() call since init / reset
+        self._table_cast_cache = None  # (params, version, cast params)
         self._ladder_plan = None       # (occ_version, t_a0)
         self._tile_layouts = {}        # (H, W, chunk) -> tile-major layout
         self._beam_dilate_cache = None
         self._beam_guard_cache = {}
-        if occupancy is not None:
-            self.set_occupancy(occupancy)
+        self.state = self._init_state(1, params, occupancy)
+
+    # ------------------------------------------------------------- state
+    def _init_state(self, n_images: int, params, occupancy=None) -> TrainState:
+        """A fresh TrainState on `params` (copied to f32 leaves that require
+        grad): zero Adam moments, EMA = params, error maps at 0.1, the given
+        or an empty occupancy state, mean count 0."""
+        params = {k: [t.detach().to(self.device, torch.float32).clone().requires_grad_()
+                      for t in v] for k, v in params.items()}
+        optimizer = torch.optim.Adam(_leaves(params), lr=self.opt.lr, betas=(0.9, 0.99),
+                                     eps=1e-15)
+        if occupancy is None and self.occupancy_cfg is not None:
+            occupancy = init_occupancy_state(self.occupancy_cfg, device=self.device)
+        self._occ_version += 1
+        self._params_version += 1
+        return TrainState(
+            params=params, optimizer=optimizer,
+            ema_params={k: [t.detach().clone() for t in v] for k, v in params.items()},
+            error_maps=(torch.full((n_images, EMAP_SIDE**2), 0.1, device=self.device)
+                        if self.opt.error_map else None),
+            occupancy=occupancy,
+            mean_count=(torch.zeros((), device=self.device)
+                        if self.march_cfg is not None else None))
+
+    @property
+    def params(self):
+        return self.state.params
+
+    @property
+    def occupancy(self):
+        return self.state.occupancy
+
+    @property
+    def global_step(self) -> int:
+        return self.state.global_step
+
+    @property
+    def stats(self) -> dict:
+        return self.state.stats
 
     def set_occupancy(self, occupancy):
         """Replace the occupancy state; bumps the version the plan caches key on."""
-        self.occupancy = occupancy
+        self.state.occupancy = occupancy
         self._occ_version += 1
+
+    def reset_model(self):
+        """Fresh weights (the next draw of the init generator), optimizer,
+        EMA, error maps and occupancy: the GUI's reset button."""
+        n_images = (self.state.error_maps.shape[0]
+                    if self.state.error_maps is not None else 1)
+        self.state = self._init_state(
+            n_images, init_network(self._init_gen, self.cfg, device=self.device))
+        self.epoch = 0
+        self._fresh = True
+        self._mean_count_host = 0.0
+        self._table_cast_cache = None
+
+    def log(self, *msg):
+        text = " ".join(str(m) for m in msg)
+        print(f"[{self.opt.name}] {text}")
+        os.makedirs(self.workspace, exist_ok=True)
+        with open(self.log_path, "a") as f:
+            f.write(text + "\n")
+
+    # ---------------------------------------------------------- schedule
+    def _lr(self, count: int) -> float:
+        """LambdaLR's 0.1^(t / lr_horizon) at the pre-increment Adam count."""
+        return self.opt.lr * (0.1 ** (count / self.lr_horizon))
+
+    def _steps_to_phase_boundary(self) -> int:
+        """Steps until the next occupancy-update or dt-anneal boundary."""
+        interval = self.opt.update_extra_interval
+        dist = interval - (self.global_step % interval)
+        for threshold, _ in self.opt.dt_anneal:
+            if threshold <= 1.0:
+                threshold = threshold * self.opt.iters
+            if self.global_step < threshold:
+                dist = min(dist, int(threshold) - self.global_step)
+        return max(dist, 1)
+
+    def _current_budget(self):
+        """The packed shade's sample budget: the smallest bucket covering
+        margin x the host mirror of the mean-count EMA; None shades the full
+        (N, K) lattice."""
+        if (self.march_cfg is None
+                or not self.opt.point_budget or self._mean_count_host <= 0):
+            return None
+        nk = self.opt.num_rays * self.march_cfg.samples_per_ray
+        required = self.opt.point_budget_margin * self._mean_count_host
+        for frac in sorted(self.opt.point_budget_fracs):
+            if frac * nk >= required and frac < 1.0:
+                return max(int(frac * nk), 1)
+        return None
+
+    def _dt_mult(self) -> int:
+        """The marching dt multiplier of the anneal schedule at this step."""
+        if self.march_cfg is None:
+            return 1
+        mult = 1
+        for threshold, m in self.opt.dt_anneal:
+            if threshold <= 1.0:
+                threshold = threshold * self.opt.iters
+            if self.global_step >= threshold:
+                mult = m
+        return mult
+
+    def _train_march_cfg(self):
+        """The training march: the fixed phase-A ladder, no proxy
+        termination, the configured stride phase, max_steps // dt_mult."""
+        dt_mult = self._dt_mult()
+        if dt_mult not in self._train_mcfgs:
+            mcfg = self.march_cfg
+            self._train_mcfgs[dt_mult] = replace(
+                mcfg, coarse_normalized=False, proxy_terminate=False,
+                stride_phase=self.opt.stride_phase,
+                max_steps=max(mcfg.max_steps // dt_mult, 8) if dt_mult > 1
+                else mcfg.max_steps)
+        return self._train_mcfgs[dt_mult]
+
+    # -------------------------------------------------------- train step
+    def _device_arrays(self, ds):
+        """ds.as_arrays() (numpy poses, images, intrinsics) on the device."""
+        return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=self.device)
+                for k, v in ds.as_arrays().items()}
+
+    def draw_step(self, state: TrainState, idx: int, H: int, W: int) -> StepDraws:
+        """The step's draws from the Trainer's generator."""
+        n = self.opt.num_rays
+        emap = None if state.error_maps is None else state.error_maps[idx]
+        if self.opt.bg_train == "random":
+            bg = torch.rand((n, 3), generator=self.gen, device=self.device)
+        else:
+            bg = torch.full((n, 3), 1.0 if self.opt.bg_train == "white" else 0.0,
+                            device=self.device)
+        return StepDraws(
+            idx=idx, rays=draw_rays(self.gen, n, H, W, emap, device=self.device), bg=bg,
+            march=draw_march_key(self.gen, n, self.device))
+
+    def loss_and_grads(self, state: TrainState, arrays, draws: StepDraws) -> StepOut:
+        """Render one ray batch and differentiate the MSE w.r.t. the params."""
+        if self.march_cfg is None:
+            raise unported("training without the occupancy grid (render_rays)", "A4")
+        images = arrays["images"]
+        H, W, C = images.shape[1:]
+        emap = None if state.error_maps is None else state.error_maps[draws.idx]
+        rays = get_rays(arrays["poses"][draws.idx], arrays["intrinsics"], H, W,
+                        draws.rays, emap)
+        gt = images[draws.idx].reshape(H * W, C)[rays["inds"]]
+        if C == 4:
+            gt = gt[:, :3] * gt[:, 3:] + draws.bg * (1.0 - gt[:, 3:])
+        with torch.enable_grad():
+            out = render_rays_grid(
+                make_field(state.params, self.cfg), state.occupancy,
+                self._train_march_cfg(), rays["rays_o"], rays["rays_d"],
+                key=draws.march, bg_color=draws.bg, sample_budget=self._current_budget())
+            per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
+            loss = per_ray.mean()
+            grads = torch.autograd.grad(loss, _leaves(state.params))
+        return StepOut(loss.detach(), per_ray.detach(), out["n_samples"], list(grads),
+                       rays["inds"])
+
+    @torch.no_grad()
+    def apply(self, state: TrainState, out: StepOut, idx: int, H: int, W: int):
+        """Adam, the EMA of the params, the error-map and mean-count EMAs,
+        and the step count, in place on `state`."""
+        opt = state.optimizer
+        leaves = _leaves(state.params)
+        st = opt.state.get(leaves[0])
+        count = int(st["step"]) if st else 0
+        for group in opt.param_groups:
+            group["lr"] = self._lr(count)
+        for p, g in zip(leaves, out.grads):
+            p.grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        d = self.opt.ema_decay
+        ema = _leaves(state.ema_params)
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, torch._foreach_mul(leaves, 1.0 - d))
+        if state.error_maps is not None:
+            j, i = out.inds // W, out.inds % W
+            coarse = (j * EMAP_SIDE // H) * EMAP_SIDE + (i * EMAP_SIDE // W)
+            row = state.error_maps[idx]
+            row[coarse] = 0.9 * row[coarse] + 0.1 * out.per_ray
+        if state.mean_count is not None and out.n_samples is not None:
+            ns = out.n_samples.float()
+            state.mean_count = torch.where(state.mean_count <= 0.0, ns,
+                                           0.9 * state.mean_count + 0.1 * ns)
+        state.global_step += 1
+        self._params_version += 1
+
+    def train_step(self, state: TrainState, arrays, draws: StepDraws):
+        """One step; returns its loss (a 0-d device tensor)."""
+        out = self.loss_and_grads(state, arrays, draws)
+        H, W = arrays["images"].shape[1:3]
+        self.apply(state, out, draws.idx, H, W)
+        return out.loss
+
+    # ------------------------------------------------------------- loop
+    def train(self, train_ds, valid_ds=None, max_epochs: int = 1,
+              steps_per_epoch: int | None = None):
+        """train_ds: any object with as_arrays() (numpy "poses" (P, 4, 4),
+        "images" (P, H, W, C), "intrinsics" (4,)), H, W and __len__."""
+        arrays = self._device_arrays(train_ds)
+        H, W = train_ds.H, train_ds.W
+        if self._fresh:
+            if self.opt.error_map:
+                self.state.error_maps = torch.full((len(train_ds), EMAP_SIDE**2), 0.1,
+                                                   device=self.device)
+            self._maybe_resume()
+            self._fresh = False
+        if self.state.occupancy is not None:
+            self.set_occupancy(mark_untrained_grid(
+                self.state.occupancy, self.occupancy_cfg, arrays["poses"],
+                arrays["intrinsics"], H, W))
+        steps = steps_per_epoch or max(len(train_ds), 100)
+        rng = np.random.default_rng(self.opt.seed + self.epoch)
+        for _ in range(max_epochs):
+            self.epoch += 1
+            t0 = time.time()
+            total = torch.zeros((), device=self.device)
+            s = 0
+            while s < steps:
+                self._maybe_update_occupancy()
+                if self.opt.scan_steps > 1:
+                    k = min(self.opt.scan_steps, steps - s, self._steps_to_phase_boundary())
+                    idxs = rng.integers(len(train_ds), size=k)
+                else:
+                    idxs = [rng.integers(len(train_ds))]
+                for idx in idxs:
+                    draws = self.draw_step(self.state, int(idx), H, W)
+                    total += self.train_step(self.state, arrays, draws)
+                s += len(idxs)
+            avg = float(total) / steps
+            self.stats["loss"].append(avg)
+            self.log(f"epoch {self.epoch} | loss {avg:.6f} | "
+                     f"{steps / (time.time() - t0):.1f} steps/s")
+            self.save_checkpoint(full=True)
+            if valid_ds is not None and self.epoch % self.opt.eval_interval == 0:
+                self.evaluate(valid_ds)
+
+    def _maybe_update_occupancy(self):
+        """Every update_extra_interval steps: refresh the host mirror of the
+        mean count and sweep the density grid (unless frozen)."""
+        state = self.state
+        if state.occupancy is None or self.global_step % self.opt.update_extra_interval:
+            return
+        if state.mean_count is not None:
+            self._mean_count_host = float(state.mean_count)
+        freeze_at = self.opt.occ_freeze_after
+        if freeze_at == 1 and isinstance(freeze_at, int):
+            raise ValueError(
+                "occ_freeze_after=1 is ambiguous: pass 1.0 for the fraction form "
+                "or an absolute step count >= 2")
+        if 0 < freeze_at <= 1.0:
+            freeze_at = freeze_at * self.opt.iters
+        if freeze_at > 0 and self.global_step > freeze_at:
+            return
+        thresh_cap = None
+        tfa = self.opt.occ_thresh_freeze_after
+        if 0 < tfa <= 1.0:
+            tfa = int(tfa * self.opt.iters)
+        if tfa and self.global_step > tfa:
+            if self._pinned_thresh is None:
+                self._pinned_thresh = min(float(state.occupancy["mean_density"]),
+                                          self.occupancy_cfg.density_thresh)
+            thresh_cap = self._pinned_thresh
+        draws = draw_update(self.gen, state.occupancy, self.occupancy_cfg)
+        self.set_occupancy(update_extra_state(
+            state.occupancy, self.occupancy_cfg, state.params, self.cfg, draws,
+            thresh_cap=thresh_cap))
 
     @staticmethod
     def _apply_ladder_plan(mcfg, plan):
@@ -138,20 +473,22 @@ class Trainer:
                        first_k=fk, proxy_terminate=px)
 
     def _cast_eval_tables(self, params):
-        """Hash tables in opt.eval_table_dtype, cached per params object.
+        """Hash tables in opt.eval_table_dtype, cached per params object and
+        version (a train step updates the params in place).
 
         With the fused MLP backend the MLP weights are also stored in bf16,
         the type the kernel reads, so no call re-casts them."""
-        if (self._table_cast_cache is None
-                or self._table_cast_cache[0] is not params):
+        cached = self._table_cast_cache
+        if (cached is None or cached[0] is not params
+                or cached[1] != self._params_version):
             dtype = getattr(torch, self.opt.eval_table_dtype)
             cast = dict(params)
             cast["encoder"] = [t.to(dtype) for t in params["encoder"]]
             if self.cfg.mlp_backend == "fused":
                 for k in ("sigma_net", "color_net"):
                     cast[k] = [w.to(torch.bfloat16) for w in params[k]]
-            self._table_cast_cache = (params, cast)
-        return self._table_cast_cache[1]
+            self._table_cast_cache = (params, self._params_version, cast)
+        return self._table_cast_cache[2]
 
     def _tile_layout(self, H, W, chunk):
         """Cached tile-major layout of one frame shape: padded pixel coords
@@ -331,3 +668,106 @@ class Trainer:
             image = torch.cat(imgs)[:n][inv]
             depth = torch.cat(depths)[:n][inv]
         return image.reshape(H, W, 3), depth.reshape(H, W)
+
+    def evaluate(self, ds, name: str | None = None, use_ema: bool = True):
+        """Mean PSNR of render_full over ds's frames (white background),
+        with the EMA params unless use_ema=False; a new best writes the
+        model-only checkpoint. Validation images are not written."""
+        params = self.state.ema_params if use_ema else self.state.params
+        arrays = ds.as_arrays()
+        meter = PSNRMeter()
+        for i in range(len(ds)):
+            image, _ = self.render_full(params, arrays["poses"][i], arrays["intrinsics"],
+                                        ds.H, ds.W, bg_color=1.0)
+            gt = np.asarray(arrays["images"][i], dtype=np.float32)
+            if gt.shape[-1] == 4:
+                gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+            meter.update(image.cpu().numpy(), gt)
+        result = meter.measure()
+        self.stats["results"].append(result)
+        if self.stats["best_result"] is None or result > self.stats["best_result"]:
+            self.stats["best_result"] = result
+            self.save_checkpoint(best=True)
+        self.log(f"eval epoch {self.epoch}: {meter.report()}")
+        return result
+
+    def test(self, ds, write_video: bool = True, name: str | None = None):
+        raise unported("Trainer.test (frame and video writing)", "A11")
+
+    def save_mesh(self, path: str | None = None, resolution: int = 256,
+                  threshold: float = 10.0):
+        raise unported("Trainer.save_mesh (mesh export)", "A11")
+
+    # --------------------------------------------------------- checkpoints
+    def _ckpt_tree(self):
+        """params, optax-shaped Adam state and EMA params, plus error maps
+        and occupancy where the state has them."""
+        st = self.state
+        tree = {"params": st.params,
+                "opt_state": ckpt_lib.adam_to_optax(st.optimizer, st.params),
+                "ema_params": st.ema_params}
+        if st.error_maps is not None:
+            tree["error_maps"] = st.error_maps
+        if st.occupancy is not None:
+            tree["occupancy"] = st.occupancy
+        return tree
+
+    def save_checkpoint(self, full: bool = False, best: bool = False):
+        """The reference's rolling <name>_epNNNN.npz (full=True adds the
+        error maps and occupancy) or the model-only <name>_best.npz (EMA
+        params at the root)."""
+        meta = {"epoch": self.epoch, "global_step": self.global_step,
+                "stats": dict(self.stats), "grid": ckpt_lib.grid_meta_of(self.cfg)}
+        if best:
+            ckpt_lib.save_checkpoint(os.path.join(self.ckpt_dir, f"{self.opt.name}_best"),
+                                     self.state.ema_params, meta)
+            return
+        tree = self._ckpt_tree()
+        if not full:
+            tree.pop("error_maps", None)
+            tree.pop("occupancy", None)
+        ckpt_lib.save_checkpoint(
+            os.path.join(self.ckpt_dir, f"{self.opt.name}_ep{self.epoch:04d}"), tree, meta)
+        ckpt_lib.prune_checkpoints(self.ckpt_dir, self.opt.name, self.opt.max_keep_ckpt)
+
+    def _maybe_resume(self):
+        """opt.use_checkpoint: "latest", "best", "scratch" or a path."""
+        mode = self.opt.use_checkpoint
+        if mode == "scratch":
+            return
+        if mode == "latest":
+            path = ckpt_lib.latest_checkpoint(self.ckpt_dir, self.opt.name)
+        else:
+            p = (os.path.join(self.ckpt_dir, f"{self.opt.name}_best.npz")
+                 if mode == "best" else mode)
+            path = p if os.path.exists(p) else None
+        if path is None:
+            self.log("no checkpoint found, training from scratch")
+            return
+        self.load_checkpoint(path)
+        self.log(f"resumed from {path} (epoch {self.epoch})")
+
+    def load_checkpoint(self, path: str):
+        """Load a full or model-only ("best") checkpoint of either package
+        into the state; returns the load report."""
+        st = self.state
+        if "best" in os.path.basename(path):
+            params, meta, report = ckpt_lib.load_checkpoint(path, st.params)
+            ckpt_lib.check_grid_meta(meta, self.cfg, path)
+            new = self._init_state(1, params, st.occupancy)
+            new.error_maps = st.error_maps
+        else:
+            tree, meta, report = ckpt_lib.load_checkpoint(path, self._ckpt_tree())
+            ckpt_lib.check_grid_meta(meta, self.cfg, path)
+            new = self._init_state(1, tree["params"], tree.get("occupancy", st.occupancy))
+            ckpt_lib.adam_from_optax(new.optimizer, new.params, tree["opt_state"])
+            new.ema_params = tree["ema_params"]
+            new.error_maps = tree.get("error_maps", st.error_maps)
+        new.mean_count = st.mean_count
+        self.state = new
+        self.epoch = meta.get("epoch", 0)
+        self.state.global_step = meta.get("global_step", 0)
+        self.stats.update(meta.get("stats", {}))
+        for r in report:
+            self.log("ckpt:", r)
+        return report
