@@ -229,7 +229,6 @@ class Trainer:
         self.state = self._init_state(
             n_images, init_network(self._init_gen, self.cfg, device=self.device))
         self.epoch = 0
-        self._fresh = True
         self._mean_count_host = 0.0
         self._table_cast_cache = None
 
