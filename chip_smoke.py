@@ -659,6 +659,7 @@ def time_training(tr, arrays, H, W, device, card, launches_per_step):
     """Steps/s over TIMED_STEPS warm steps, one full and one partial sweep,
     and one profiled step."""
     from nerfnav_tpu_torch.models.occupancy import draw_update, update_extra_state
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
 
     sync(device)
     t0 = time.perf_counter()
@@ -672,10 +673,12 @@ def time_training(tr, arrays, H, W, device, card, launches_per_step):
         st = {**occ, "iter_density": torch.full_like(occ["iter_density"], it)}
         draws = draw_update(tr.gen, st, ocfg)
         sync(device)
+        before = fm.fused_mlp.launches
         t0 = time.perf_counter()
         update_extra_state(st, ocfg, tr.params, tr.cfg, draws)
         sync(device)
         sweeps[f"{name}_sweep_ms"] = (time.perf_counter() - t0) * 1e3
+        sweeps[f"{name}_sweep_fused_launches"] = fm.fused_mlp.launches - before
     log("train timing:", json.dumps({
         "card": card, "steps_per_s": 1.0 / step_s, "step_ms": step_s * 1e3,
         "budget": tr._current_budget(), "fused_launches_per_step": launches_per_step,

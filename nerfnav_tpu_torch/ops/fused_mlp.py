@@ -146,21 +146,20 @@ class _FusedMLP(torch.autograd.Function):
     reference's recompute backward."""
 
     @staticmethod
-    def forward(ctx, x, activation, output_activation, *weights):
+    def forward(ctx, x, dims, activation, output_activation, *weights):
         ctx.save_for_backward(x, *weights)
         ctx.acts = (activation, output_activation)
         if x.device.type == "cpu":
             return fused_mlp_reference(x, weights, activation, output_activation)
         if x.device.type != "cuda":
             raise ValueError("fused_mlp needs x and every weight on one CUDA device")
-        dims = [x.shape[1]] + [w.shape[1] for w in weights]
         return _launch(x, weights, dims, activation, output_activation)
 
     @staticmethod
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
         dx, dws = _mlp_backward(x, weights, g, *ctx.acts)
-        return (dx, None, None, *dws)
+        return (dx, None, None, None, *dws)
 
 
 def fused_mlp(x, weights, activation="relu", output_activation="none"):
@@ -170,8 +169,8 @@ def fused_mlp(x, weights, activation="relu", output_activation="none"):
     On a CUDA tensor the forward launches the kernel on the current stream
     and adds one to `fused_mlp.launches`; on a CPU tensor it runs the plain
     version. Differentiable in x and the weights (see `_mlp_backward`)."""
-    _check(x, weights, activation, output_activation)
-    return _FusedMLP.apply(x, activation, output_activation, *weights)
+    dims = _check(x, weights, activation, output_activation)
+    return _FusedMLP.apply(x, dims, activation, output_activation, *weights)
 
 
 fused_mlp.launches = 0

@@ -29,7 +29,6 @@ from nerfnav_tpu.models import renderer as jrend
 from nerfnav_tpu.models.occupancy import OccupancyConfig as JOccCfg
 from nerfnav_tpu.ops import marching as jm
 from nerfnav_tpu.training import Trainer as JTrainer, TrainerOptions as JOpts
-from nerfnav_tpu.training import checkpoint as jckpt
 from nerfnav_tpu_torch.data import rays as trays
 from nerfnav_tpu_torch.models import network as tnet
 from nerfnav_tpu_torch.models import renderer as trend
