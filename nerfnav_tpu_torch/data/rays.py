@@ -5,7 +5,8 @@ directions (x=(i+0.5-cx)/fx, y=(j+0.5-cy)/fy, z=1) in the camera frame,
 rotated by pose[:3, :3]; origins are pose[:3, 3]. `get_rays` samples a
 training batch from explicit draws (`RayDraws`, made by `draw_rays` from a
 torch.Generator), so a test can inject the JAX package's draws.
-`get_rays_at` (the nav stack's) is ROADMAP A7.
+`get_rays_at` gives the rays of explicit flat pixel indices, the pose
+filter's per-iteration path.
 """
 
 from typing import NamedTuple, Optional
@@ -50,6 +51,14 @@ def get_rays(pose, intrinsics, H: int, W: int, draws: RayDraws, error_map=None):
         fy = torch.clamp(((cy.float() + draws.jitter[:, 0]) / EMAP_SIDE * H).long(), 0, H - 1)
         fx = torch.clamp(((cx.float() + draws.jitter[:, 1]) / EMAP_SIDE * W).long(), 0, W - 1)
         inds = fy * W + fx
+    j, i = inds // W, inds % W
+    rays = _to_world(_pixel_dirs(i.float(), j.float(), intrinsics), pose)
+    return {**rays, "inds": inds}
+
+
+def get_rays_at(pose, intrinsics, W: int, inds):
+    """Rays at flat row-major pixel indices inds (n,): directions only at
+    those pixels, differentiable w.r.t. pose. {"rays_o", "rays_d", "inds"}."""
     j, i = inds // W, inds % W
     rays = _to_world(_pixel_dirs(i.float(), j.float(), intrinsics), pose)
     return {**rays, "inds": inds}

@@ -1,14 +1,22 @@
-"""Volume rendering over the occupancy grid.
+"""Volume rendering: the dense differentiable path and the occupancy grid.
 
 Counterpart of nerfnav_tpu/models/renderer.py (`Field`, `make_field`,
-`near_far_from_aabb`, `composite`, `render_rays_grid` with its dense and
-point-budget packed shades, `render_rays_grid_rounds`). The reference wraps
-every round of the eval renderer in a `lax.cond`; eagerly those are Python
-branches on the alive count, one host read per round. The dense
-differentiable path (`render_rays`) is ROADMAP A4.
+`aabb_of`, `near_far_from_aabb`, `sample_pdf`, `composite`, the dense
+`render_rays` and `render_image`, `render_rays_grid` with its dense and
+point-budget packed shades, `render_rays_frozen`, `render_rays_grid_rounds`).
+The reference wraps every round of the eval renderer in a `lax.cond`;
+eagerly those are Python branches on the alive count, one host read per
+round.
+
+The dense path and the frozen shade are what the nav stack differentiates,
+in reverse mode (planner) and forward mode (the pose filter's
+torch.func.jacfwd): they read no value back to the host and branch on no
+data, so they run under vmap. Randomness is passed in as tensors (the
+stratified jitter and the importance-sampling draws), not drawn inside.
 """
 
 from dataclasses import dataclass
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -66,6 +74,11 @@ class RenderConfig:
     max_ray_batch: int = 4096
 
 
+def aabb_of(bound: float, device="cpu"):
+    """Train AABB [-b, -b, -b, b, b, b] as a (6,) float32 tensor."""
+    return torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32, device=device)
+
+
 def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.2):
     """Slab-test ray/AABB intersection; aabb (6,) tensor. Rays that miss get
     near == far."""
@@ -76,6 +89,40 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.2):
     near = torch.clamp(torch.minimum(t0, t1).amax(dim=-1), min=min_near)
     far = torch.maximum(torch.maximum(t0, t1).amin(dim=-1), near)
     return near, far
+
+
+def linspace(start: float, stop: float, num: int, device="cpu"):
+    """jnp.linspace's float32 values: start (1 - s) + stop s with
+    s = i / (num - 1), the last entry exactly stop (torch.linspace counts
+    the second half down from stop, which rounds differently)."""
+    if num == 1:
+        return torch.tensor([start], dtype=torch.float32, device=device)
+    step = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
+    out = start * (1.0 - step) + stop * step
+    return torch.cat([out, torch.tensor([stop], dtype=torch.float32, device=device)])
+
+
+def sample_pdf(bins, weights, n_samples: int, u=None):
+    """Inverse-CDF importance sampling. bins (N, T+1) edges, weights (N, T);
+    u (N, n_samples) uniform draws, or None for the deterministic midpoints
+    (i + 0.5) / n_samples. Returns (N, n_samples)."""
+    n, t = weights.shape
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(dim=-1, keepdim=True)
+    cdf = torch.cat([torch.zeros((n, 1), dtype=pdf.dtype, device=pdf.device),
+                     torch.cumsum(pdf, dim=-1)], dim=-1)
+    if u is None:
+        u = linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples, pdf.device)
+        u = u.expand(n, n_samples)
+    inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(inds - 1, 0, t)
+    above = torch.clamp(inds, 0, t)
+    cdf_b = torch.gather(cdf, -1, below)
+    cdf_a = torch.gather(cdf, -1, above)
+    bins_b = torch.gather(bins, -1, below)
+    bins_a = torch.gather(bins, -1, above)
+    denom = torch.where(cdf_a - cdf_b < 1e-5, torch.ones_like(cdf_a), cdf_a - cdf_b)
+    return bins_b + (u - cdf_b) / denom * (bins_a - bins_b)
 
 
 def _excl_trans(alphas):
@@ -106,6 +153,103 @@ def _clip(x, lo: float, hi: float):
     where torch.clamp passes all."""
     lo_t = torch.full((), lo, device=x.device, dtype=x.dtype)
     return torch.minimum(torch.maximum(x, lo_t), lo_t + (hi - lo))
+
+
+def _background(field: Field, bg_color, image):
+    if field.bg_fn is not None and field.bg_radius > 0:
+        raise unported("background network compositing", "A3")
+    return torch.as_tensor(bg_color, dtype=torch.float32, device=image.device)
+
+
+def render_rays(field: Field, rcfg: RenderConfig, rays_o, rays_d, jitter=None, u=None,
+                bg_color=1.0, crop_aabb=None):
+    """The dense differentiable render (reference `run()`): rcfg.num_steps
+    uniform samples between the AABB's near and far, optionally upsampled
+    by rcfg.upsample_steps importance samples merged in depth order.
+
+    jitter: (N, num_steps) uniform draws that perturb each sample by
+    (jitter - 0.5) sample spacings (the reference's perturb), or None;
+    u: (N, upsample_steps) draws for sample_pdf, or None for its midpoints.
+    bg_color: scalar, (3,) or (N, 3). Returns {"image" (N, 3), "depth",
+    "weights_sum" (N,)}, differentiable w.r.t. the field and the rays in
+    both modes."""
+    if crop_aabb is not None:
+        raise unported("render_rays with crop_aabb", "A6")
+    n = rays_o.shape[0]
+    aabb = aabb_of(field.bound, rays_o.device)
+    near, far = near_far_from_aabb(rays_o, rays_d, aabb, rcfg.min_near)
+    t = rcfg.num_steps
+    z_vals = near[:, None] + (far - near)[:, None] * linspace(0.0, 1.0, t, rays_o.device)
+    sample_dist = (far - near) / t
+    if jitter is not None:
+        z_vals = z_vals + (jitter - 0.5) * sample_dist[:, None]
+
+    def eval_density(z):
+        xyz = _clip(rays_o[:, None, :] + rays_d[:, None, :] * z[..., None],
+                    -field.bound, field.bound)
+        sigma, geo = field.density_fn(xyz.reshape(-1, 3))
+        return sigma.reshape(z.shape), geo.reshape(*z.shape, -1)
+
+    sigmas, geo_feats = eval_density(z_vals)
+    if rcfg.upsample_steps > 0:
+        # importance samples from the coarse weights, with no derivative in
+        # either mode through the proposal (detach, not no_grad, which
+        # leaves forward-mode tangents on)
+        zc, sc = z_vals.detach(), sigmas.detach()
+        deltas_c = torch.cat([torch.diff(zc, dim=-1), sample_dist.detach()[:, None]], dim=-1)
+        _, _, _, w_coarse = composite(sc, torch.zeros((*sc.shape, 3), device=sc.device),
+                                      deltas_c, zc, field.density_scale)
+        mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+        bins = torch.cat([near[:, None], mids, far[:, None]], dim=-1).detach()
+        new_z = sample_pdf(bins, w_coarse, rcfg.upsample_steps, u).detach()
+        new_sigmas, new_geo = eval_density(new_z)
+        z_all = torch.cat([z_vals, new_z], dim=-1)
+        order = torch.argsort(z_all, dim=-1, stable=True)
+        z_vals = torch.gather(z_all, -1, order)
+        sigmas = torch.gather(torch.cat([sigmas, new_sigmas], dim=-1), -1, order)
+        geo_all = torch.cat([geo_feats, new_geo], dim=-2)
+        geo_feats = torch.gather(geo_all, -2, order[..., None].expand(*order.shape,
+                                                                      geo_all.shape[-1]))
+        t = t + rcfg.upsample_steps
+
+    deltas = torch.cat([torch.diff(z_vals, dim=-1), sample_dist[:, None]], dim=-1)
+    dirs = _unit(rays_d)[:, None, :].expand(n, t, 3).reshape(-1, 3)
+    rgbs = field.color_fn(dirs, geo_feats.reshape(n * t, -1)).reshape(n, t, 3)
+    image, depth, weights_sum, _ = composite(sigmas, rgbs, deltas, z_vals, field.density_scale)
+    bg = _background(field, bg_color, image)
+    image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
+    return {"image": image, "depth": depth, "weights_sum": weights_sum}
+
+
+def render_image(field: Field, rcfg: RenderConfig, rays_o, rays_d, bg_color=1.0,
+                 chunk=None):
+    """render_rays over fixed-size chunks of a frame's rays (the reference's
+    staged inference); the last chunk is padded to full size."""
+    chunk = chunk or rcfg.max_ray_batch
+    n = rays_o.shape[0]
+    pad = (-n) % chunk
+    if pad:
+        rays_o = torch.cat([rays_o, torch.zeros((pad, 3), device=rays_o.device)])
+        rays_d = torch.cat([rays_d, torch.full((pad, 3), 1.0 / math.sqrt(3.0),
+                                               device=rays_d.device)])
+    outs = [render_rays(field, rcfg, rays_o[i : i + chunk], rays_d[i : i + chunk],
+                        bg_color=bg_color) for i in range(0, n + pad, chunk)]
+    return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
+
+
+def render_rays_frozen(field: Field, bound: float, rays_o, rays_d, z, dt, valid,
+                       bg_color=1.0):
+    """Shade and composite at precomputed sample depths (N, K), the
+    march-free half of render_rays_grid: positions o + d z stay
+    differentiable w.r.t. the rays while (z, dt, valid) are constants. The
+    pose filter's frozen mode marches once per update at the predicted pose
+    and shades this fixed lattice every LM iteration."""
+    z, dt = z.detach(), dt.detach()
+    sigmas, rgbs = _shade_dense(field, rays_o, rays_d, z, valid, bound)
+    image, depth, weights_sum, _ = composite(sigmas, rgbs, dt, z, field.density_scale)
+    bg = _background(field, bg_color, image)
+    image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
+    return {"image": image, "depth": depth, "weights_sum": weights_sum}
 
 
 def render_rays_grid(field: Field, occupancy, mcfg, rays_o, rays_d, key=None,
@@ -151,6 +295,9 @@ def _shade_dense(field: Field, rays_o, rays_d, z, valid, bound: float):
     pos = torch.clamp(rays_o[:, None, :] + rays_d[:, None, :] * z[..., None], -bound, bound)
     sigmas, geo = field.density_fn(pos.reshape(-1, 3))
     sigmas = torch.where(valid.reshape(-1), sigmas, 0.0).reshape(n, k)
+    if field.encode_dir_fn is None:  # analytic fields: color from directions
+        dirs = _unit(rays_d)[:, None, :].expand(n, k, 3).reshape(-1, 3)
+        return sigmas, field.color_fn(dirs, geo).reshape(n, k, 3)
     hd = field.encode_dir_fn(_unit(rays_d))
     e = hd.shape[-1]
     rgbs = field.color_enc_fn(hd[:, None, :].expand(n, k, e).reshape(-1, e), geo)
