@@ -76,6 +76,10 @@ def rot_matrix_to_vec(R):
     axis comes from the largest-diagonal column of
     R + R^T - (trace - 1) I = 2 (1 - cos) a a^T, sign-aligned with the
     antisymmetric part."""
+    # at least one batch dim: under torch.func.jacfwd, a 0-dim intermediate
+    # scaled by a Python float gets a float64 tangent
+    lead = R.shape[:-2]
+    R = R.reshape(-1, 3, 3)
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_theta = (trace - 1.0) / 2.0
     theta = _acos_safe(cos_theta)
@@ -95,7 +99,7 @@ def rot_matrix_to_vec(R):
     axis = col / _norm_safe(col)
     sign = torch.where((col * off).sum(dim=-1) >= 0.0, 1.0, -1.0)
     near_pi = theta[..., None] * sign[..., None] * axis
-    return torch.where((cos_theta < -0.99)[..., None], near_pi, generic)
+    return torch.where((cos_theta < -0.99)[..., None], near_pi, generic).reshape(*lead, 3)
 
 
 def rot_x(theta: float, device="cpu"):

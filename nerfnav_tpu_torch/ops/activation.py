@@ -4,12 +4,15 @@ Counterpart of nerfnav_tpu/ops/activation.py (`trunc_exp`, a custom_jvp
 there): the forward is a plain exp, the derivative in both modes is
 exp(clamp(x, -15, 15)), so huge densities cannot blow up gradients. The
 `jvp` rule serves forward-mode callers (`torch.func.jvp`, `jacfwd`), which
-the nav stack's LM filter needs (ROADMAP A10)."""
+the nav stack's LM filter needs; `generate_vmap_rule` lets jacfwd batch the
+tangents through it."""
 
 import torch
 
 
 class TruncExp(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
     def forward(x):
         return torch.exp(x)
