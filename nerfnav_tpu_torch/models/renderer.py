@@ -271,8 +271,10 @@ def render_rays_grid(field: Field, occupancy, mcfg, rays_o, rays_d, key=None,
     if field.bg_fn is not None and field.bg_radius > 0:
         raise unported("background network compositing", "A3")
     n = rays_o.shape[0]
+    # detached rays: no derivative of either mode enters the march
     with torch.no_grad():
-        m = march(rays_o, rays_d, occupancy, mcfg, key=key, crop_aabb=crop_aabb)
+        m = march(rays_o.detach(), rays_d.detach(), occupancy, mcfg, key=key,
+                  crop_aabb=crop_aabb)
     z, dt, valid = m["z"], m["dt"], m["valid"]
     k = z.shape[1]
     n_samples = valid.sum()
