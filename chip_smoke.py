@@ -67,6 +67,7 @@ MLP_EDGES = {"8x128": ([128] * 9, 1000), "3-256-256-1": ([3, 256, 256, 1], 1000)
              "1-16-1": ([1, 16, 1], 1000)}
 COLOR_EDGE_ROWS = (1, 127, 128, 129, 8192, 32768)
 TRAIN_STEPS = 48    # sweeps at steps 0, 16 and 32
+NAV_WS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_nav")
 TIMED_STEPS = 32
 # the gradients of one step with the kernel against those with the plain
 # MLP, relative L2 norm per param tensor: the plain MLP differentiates in
@@ -306,17 +307,19 @@ def profile_call(fn, unprofiled_ms, what):
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     if not by_name:
         log(f"{what}: the profiler recorded no device time (not measured)")
-        return
+        return None
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     fused = [v for k, v in by_name.items() if "fused_mlp_kernel" in k]
-    log(f"{what}:", json.dumps({
+    out = {
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "kernel_launches": sum(n for _, n in by_name.values()),
         "device_idle_share_of_unprofiled_call": 1.0 - busy_ms / unprofiled_ms,
         "fused_mlp_kernel_ms_count": [sum(ms for ms, _ in fused), sum(n for _, n in fused)],
         "top_kernels_ms_count": [[k[:70], round(ms, 3), n] for k, (ms, n) in top],
-    }))
+    }
+    log(f"{what}:", json.dumps(out))
+    return out
 
 
 def yaw_pose(deg):
@@ -598,6 +601,12 @@ def training_phase(device, sizes, card):
     check(ck_err <= 1e-6, f"the reloaded field renders {ck_err} away")
     del tr2
     shutil.rmtree(workspace + "_load", ignore_errors=True)
+    # the nav phase flies through this trained field: keep its checkpoint
+    # (EMA params + occupancy) where cli/simulate.py's loader looks
+    nav_ckpt = os.path.join(NAV_WS, "checkpoints", "ngp_ep0001.npz")
+    shutil.rmtree(NAV_WS, ignore_errors=True)
+    os.makedirs(os.path.dirname(nav_ckpt))
+    shutil.copy(ckpt_lib.latest_checkpoint(tr.ckpt_dir, "smoke"), nav_ckpt)
 
     time_training(tr, arrays, H, W, device, card, step_launches / TRAIN_STEPS)
     shutil.rmtree(workspace, ignore_errors=True)
@@ -689,6 +698,350 @@ def time_training(tr, arrays, H, W, device, card, launches_per_step):
                      "profiled train step")
 
 
+# ------------------------------------------------------------------ nav phase
+NAV_TICKS, NAV_OPEN_LOOP = 6, 1  # of the 20-step mission: 5 closed loop, 1 open
+NAV_HOVER = np.asarray([10.0, 0.0, 0.0, 0.0], np.float32)  # thrust m g
+# the nav stack's full width on the card, toy sizes for the rehearsal; pos_err:
+# the bound on the filter's position error (metres) over the closed-loop
+# ticks under simulate.py's default process noise (2e-3 on every state dim)
+NAV_SIZES = {
+    "card": {"obs": 800, "batch": 1024, "jac": 256, "gn_iters": 15, "pool": 16384,
+             "epochs_init": 500, "epochs_update": 250, "astar_fine": 100, "pos_err": 0.02},
+    "rehearsal": {"obs": 48, "batch": 64, "jac": 32, "gn_iters": 4, "pool": 512,
+                  "epochs_init": 20, "epochs_update": 5, "astar_fine": 40, "pos_err": 0.1},
+}
+
+
+def numpy_poi(img_uint8, max_features=100, backend="sift", downscale=1):
+    """Keypoints without cv2: the strongest local maxima (5x5) of the
+    gradient magnitude of the stride-2 gray image, (M, 2) int32 [x, y]."""
+    from scipy.ndimage import maximum_filter
+
+    s = 2
+    gray = img_uint8[::s, ::s].astype(np.float32).mean(axis=-1)
+    gy, gx = np.gradient(gray)
+    mag = np.hypot(gx, gy)
+    peaks = (mag == maximum_filter(mag, size=5)) & (mag > 0.1 * max(mag.max(), 1e-6))
+    ys, xs = np.nonzero(peaks)
+    order = np.argsort(-mag[ys, xs], kind="stable")[:max_features]
+    return (np.stack([xs[order], ys[order]], axis=-1) * s).astype(np.int32)
+
+
+def nav_front_end():
+    """The filter's keypoint detector: the port's find_poi where cv2 is
+    installed, else numpy_poi in its place. Prints which one runs."""
+    import importlib.util
+
+    from nerfnav_tpu_torch.nav import estimator
+
+    if importlib.util.find_spec("cv2") is not None:
+        log("nav front end: find_poi with cv2")
+        return "cv2"
+    estimator.find_poi = numpy_poi
+    log("nav front end: cv2 is not installed; numpy_poi (gradient maxima) replaces "
+        "find_poi, a host detector of pixel coordinates only")
+    return "numpy_poi"
+
+
+def nav_opt(nav, device, *extra):
+    from nerfnav_tpu_torch.cli import simulate as sim
+
+    return sim.build_sim_parser().parse_args([
+        "chip_smoke", "--device", str(device), "--workspace", NAV_WS, "--seed", "0",
+        "--obs_res", str(nav["obs"]), "--obs_focal", str(nav["obs"]),
+        "--estimator_batch", str(nav["batch"]), "--epochs_init", str(nav["epochs_init"]),
+        "--epochs_update", str(nav["epochs_update"]), *extra])
+
+
+def nav_mission_objects(opt, nav, device):
+    """simulate.build_mission, with the rehearsal's toy filter and A* sizes
+    (on the card these are the defaults)."""
+    import dataclasses
+
+    from nerfnav_tpu_torch.cli import simulate as sim
+
+    traj, agent, filt, fused = sim.build_mission(opt, device)
+    filt.cfg.gn_jac_batch, filt.cfg.gn_iters = nav["jac"], nav["gn_iters"]
+    filt.cfg.pool_size = nav["pool"]
+    traj.cfg = dataclasses.replace(traj.cfg, astar_fine=nav["astar_fine"])
+    return traj, agent, filt, fused
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda's sync debug mode: (result, {call site: host
+    syncs})."""
+    import collections
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sites = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    return out, dict(sites)
+
+
+class TickProbe:
+    """Stands in for the FusedMPC in simulate(): runs its ticks, times each
+    (synchronized), and on chosen ticks also holds the tick against the
+    unfused sequence (timing its front end, filter and replan), profiles it,
+    or counts its host syncs."""
+
+    CHECK, PROFILE, SYNCS = 1, 2, 3
+
+    def __init__(self, fused, device):
+        self.fused, self.device = fused, device
+        self.tick_ms, self.split, self.profile, self.syncs = [], None, None, None
+
+    def _snapshot(self):
+        f, t = self.fused.filt, self.fused.traj
+        return (f.xt.clone(), f.sig.clone(), f.iteration, f.gen.get_state(), t.states.clone(),
+                t.initial_accel.clone(), t.active, t.start_state.clone(), t.epoch)
+
+    def _restore(self, snap):
+        f, t = self.fused.filt, self.fused.traj
+        (f.xt, f.sig, f.iteration, gen, t.states, t.initial_accel, t.active, t.start_state,
+         t.epoch) = snap
+        f.gen.set_state(gen)
+
+    def _unfused(self, img, action):
+        """The four-stage sequence from the same state and draws, timed."""
+        f, t = self.fused.filt, self.fused.traj
+        t0 = time.perf_counter()
+        x = f.estimate_state(img, None, action)
+        filt_ms = (time.perf_counter() - t0) * 1e3
+        t.update_state(x)
+        t0 = time.perf_counter()
+        t.learn_update(0)
+        replan_ms = (time.perf_counter() - t0) * 1e3
+        act = t.get_next_action().cpu()
+        front_ms = sum(v for k, v in f.last_timings.items() if k != "solve_ms"
+                       and k != "artifacts_ms")
+        self.split = {"front_end_ms": front_ms, "filter_ms": filt_ms - front_ms,
+                      "filter_front_end_parts_ms": f.last_timings, "replan_ms": replan_ms}
+        return x, f.sig.cpu(), t.states.cpu(), t.active, act
+
+    def step(self, img, action):
+        i = len(self.tick_ms)
+        if i == self.CHECK:
+            snap = self._snapshot()
+            want = self._unfused(img, action)
+            self._restore(snap)
+        sync(self.device)
+        t0 = time.perf_counter()
+        if i == self.PROFILE and self.device.type == "cuda":
+            box = []
+            self.profile = profile_call(lambda: box.append(self.fused.step(img, action)),
+                                        self.tick_ms[-1], "profiled nav tick")
+            x, act = box[0]
+        elif i == self.SYNCS and self.device.type == "cuda":
+            (x, act), self.syncs = count_syncs(lambda: self.fused.step(img, action))
+        else:
+            x, act = self.fused.step(img, action)
+        sync(self.device)
+        self.tick_ms.append((time.perf_counter() - t0) * 1e3)
+        check(self.fused.last_losses is not None and self.fused.last_timings is not None,
+              f"nav tick {i} took the no-keypoint fallback")
+        if i == self.CHECK:
+            f, t = self.fused.filt, self.fused.traj
+            got = (x.cpu(), f.sig.cpu(), t.states.cpu(), t.active, act.cpu())
+            xw, sigw, stw, aw, actw = want
+            ok = (torch.allclose(got[0], torch.as_tensor(xw), rtol=2e-4, atol=2e-5)
+                  and torch.allclose(got[1], sigw, rtol=2e-3, atol=2e-4)
+                  and got[3] == aw
+                  and torch.allclose(got[2], stw, rtol=2e-4, atol=2e-5)
+                  and torch.allclose(got[4], actw, rtol=2e-3, atol=2e-4))
+            diffs = {"x": float((got[0] - torch.as_tensor(xw)).abs().max()),
+                     "sig": float((got[1] - sigw).abs().max()),
+                     "states": float((got[2] - stw).abs().max()),
+                     "action": float((got[4] - actw).abs().max())}
+            log("nav tick", i, "fused vs unfused sequence, max |diff|:", json.dumps(diffs))
+            check(ok, f"the fused tick differs from the unfused sequence: {diffs}")
+        return x, act
+
+
+def nav_mission(device, nav, card):
+    """Part (a): the closed-loop mission on the analytic scene through
+    simulate.build_mission and simulate.simulate with FusedMPC ticks."""
+    from nerfnav_tpu_torch import native
+    from nerfnav_tpu_torch.cli import simulate as sim
+
+    # simulate.py's start and goal turned 90 degrees about the vertical axis
+    # (the scene is a sphere at the origin): the camera looks along body +x,
+    # and from the defaults themselves it sees an empty frame, no keypoints
+    start, goal = ["-0.67", "-0.39", "0.2"], ["0.55", "0.4", "0.16"]
+    opt = nav_opt(nav, device, "--analytic", "--start", *start, "--goal", *goal)
+    traj, agent, filt, fused = nav_mission_objects(opt, nav, device)
+    t0 = time.perf_counter()
+    path = traj.a_star_init()
+    astar_ms = (time.perf_counter() - t0) * 1e3
+    check(path is not None and len(path) > 1, "A* found no path")
+    check(native._lib is not None, "A* did not run the native build")
+    t0 = time.perf_counter()
+    losses = np.asarray(traj.learn_init())
+    init_ms = (time.perf_counter() - t0) * 1e3
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"learn_init loss {losses[0]} -> {losses[-1]} did not fall")
+    r_min = float(traj.get_full_states()["pos"].norm(dim=-1).min())
+    check(r_min > 0.5, f"the plan enters the sphere (radius 0.5): min |pos| {r_min}")
+    log("nav plan:", json.dumps({
+        "card": card, "astar_ms": astar_ms, "astar_cells": len(path), "learn_init_ms": init_ms,
+        "epochs_init": len(losses), "ms_per_epoch": init_ms / len(losses),
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]), "min_radius": r_min}))
+
+    probe = TickProbe(fused, device)
+    t0 = time.perf_counter()
+    history = sim.simulate(traj, agent, filt, steps=NAV_TICKS, open_loop_steps=NAV_OPEN_LOOP,
+                           noise_std=opt.mpc_noise_std, seed=opt.seed, fused=probe)
+    mission_s = time.perf_counter() - t0
+    closed = NAV_TICKS - NAV_OPEN_LOOP
+    check(len(history) == NAV_TICKS and len(probe.tick_ms) == closed,
+          f"{len(history)} steps, {len(probe.tick_ms)} fused ticks")
+    errs = [float(np.linalg.norm(t[0:3] - e[0:3])) for t, e in history[:closed]]
+    check(all(np.isfinite(e).all() for _, e in history), "a non-finite estimate")
+    check(max(errs) < nav["pos_err"], f"filter position errors {errs} m, bound {nav['pos_err']}")
+    log("nav mission:", json.dumps({
+        "card": card, "ticks": NAV_TICKS, "closed_loop": closed, "mission_s": mission_s,
+        "tick_ms": probe.tick_ms, "split_of_tick_1": probe.split,
+        "kernels_per_tick": probe.profile and probe.profile["kernel_launches"],
+        "idle_share": probe.profile and probe.profile["device_idle_share_of_unprofiled_call"],
+        "host_syncs_per_tick": probe.syncs and sum(probe.syncs.values()),
+        "host_sync_sites": probe.syncs, "pos_err_m": errs,
+        "final_lm_loss": float(fused.last_losses[-1]),
+        "replan_loss": [float(fused.last_plan_losses[0]), float(fused.last_plan_losses[-1])]}))
+
+
+def camera_state(pose):
+    """The 12-dim hover state whose camera pose (BODY_TO_CAM) is `pose`."""
+    from nerfnav_tpu_torch.nav.agent import BODY_TO_CAM
+    from nerfnav_tpu_torch.nav.math_utils import rot_matrix_to_vec
+
+    x = np.zeros(12, np.float32)
+    x[0:3] = pose[:3, 3]
+    R_body = torch.as_tensor(pose[:3, :3] @ BODY_TO_CAM.T)
+    x[6:9] = rot_matrix_to_vec(R_body).numpy()
+    return x
+
+
+def nav_network(device, sizes, nav, card):
+    """Part (b): the trained flagship field (the training phase's EMA params
+    and occupancy, loaded as cli/simulate.py loads a trainer checkpoint):
+    one GN update on the dense path and one on the frozen path from a pose
+    on the training orbit, and one replan through the field's density."""
+    from nerfnav_tpu_torch.nav.agent import body_state_to_camera_pose
+
+    x_true = camera_state(yaw_pose(45.0))
+    pose = body_state_to_camera_pose(torch.as_tensor(x_true)).numpy()
+    dx = np.zeros(12, np.float32)
+    dx[0:3], dx[6:9] = [0.01, -0.008, 0.006], [0.004, -0.006, 0.003]
+    base = ("-O", "--grid_hashmap_log2", str(sizes["log2"]), "--grid_size", str(sizes["grid"]))
+    out = {"card": card}
+    img = None
+    for mode in ("dense", "frozen"):
+        opt = nav_opt(nav, device, *base, "--filter_render", mode)
+        traj, agent, filt, _ = nav_mission_objects(opt, nav, device)
+        check(filt.march_fn is not None if mode == "frozen" else filt.march_fn is None,
+              f"--filter_render {mode} did not get the trained occupancy")
+        if img is None:
+            sync(device)
+            t0 = time.perf_counter()
+            img = agent.get_img(pose)
+            out["observation_ms"] = (time.perf_counter() - t0) * 1e3
+            out["observation_mean"] = float(img.mean())
+        filt.set_initial_state(x_true + dx)
+        t0 = time.perf_counter()
+        x = filt.estimate_state(img, pose, NAV_HOVER)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(filt.last_losses is not None, f"{mode}: the update found no keypoints")
+        lm = filt.last_losses.cpu().numpy()
+        check(np.isfinite(x).all() and np.isfinite(lm).all(), f"{mode}: non-finite update")
+        check((np.diff(lm) <= 0).all(), f"{mode}: the LM loss rose {lm.tolist()}")
+        out[mode] = {"update_ms": ms, "lm_loss_first_last": [float(lm[0]), float(lm[-1])],
+                     "pos_err_before_after": [float(np.linalg.norm(dx[0:3])),
+                                              float(np.linalg.norm(x[0:3] - x_true[0:3]))]}
+    # straight-line waypoints (A* is skipped: a 48-step field guarantees no
+    # free path between the endpoints)
+    t0 = time.perf_counter()
+    losses = np.asarray(traj.learn_update(0))
+    out["replan_ms"] = (time.perf_counter() - t0) * 1e3
+    out["replan_loss_first_last"] = [float(losses[0]), float(losses[-1])]
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the replan loss {losses[0]} -> {losses[-1]} did not fall")
+    log("nav on the trained field:", json.dumps(out))
+    if device.type == "cuda":
+        nav_card_vs_cpu(device)
+
+
+def nav_card_vs_cpu(device):
+    """One GN update at the CPU tests' size (32x32 observation of the
+    textured sphere, the small xla fp32 network field, batch 64): the card
+    against the CPU port from the same state and draws."""
+    from nerfnav_tpu_torch.data.rays import get_all_rays, get_rays_at
+    from nerfnav_tpu_torch.data.synthetic import textured_sphere_field
+    from nerfnav_tpu_torch.models.network import NetworkConfig, init_network
+    from nerfnav_tpu_torch.models.renderer import RenderConfig, make_field, render_rays
+    from nerfnav_tpu_torch.nav.agent import Agent, AgentConfig, body_state_to_camera_pose
+    from nerfnav_tpu_torch.nav.dynamics import DynamicsConfig
+    from nerfnav_tpu_torch.nav.estimator import Estimator, EstimatorConfig
+
+    hw, cpu = 32, torch.device("cpu")
+    x0 = np.zeros(12, np.float32)
+    x0[0:3], x0[6:9] = [0.0, -1.6, 0.0], [0.0, 0.0, np.pi / 2]
+    obs = Agent(x0, AgentConfig(H=hw, W=hw, focal=float(hw)), field=textured_sphere_field(),
+                device=cpu).get_img(body_state_to_camera_pose(torch.as_tensor(x0)).numpy())
+    cfg = NetworkConfig(bound=1.0, grid_levels=2, grid_level_dim=8, grid_log2_hashmap_size=10,
+                        grid_max_resolution=32, grid_layout="cell", density_scale=10.0)
+    params = init_network(torch.Generator().manual_seed(5), cfg, device=cpu)
+    rcfg = RenderConfig(num_steps=32, upsample_steps=0, min_near=0.05)
+    ecfg = EstimatorConfig(gn_iters=4, gn_jac_batch=32, batch_size=64, pool_size=256)
+    outs = []
+    for dev in (cpu, device):
+        field = make_field({k: [t.to(dev) for t in v] for k, v in params.items()}, cfg)
+        intr = torch.tensor([hw, hw, hw / 2, hw / 2], dtype=torch.float32, device=dev)
+        filt = Estimator(
+            ecfg, DynamicsConfig(dt=0.2),
+            lambda o, d, f=field: render_rays(f, rcfg, o, d, bg_color=1.0),
+            lambda p, i=intr: get_all_rays(p, i, hw, hw), body_state_to_camera_pose,
+            get_rays_at_fn=lambda p, n, i=intr: get_rays_at(p, i, hw, n), device=dev)
+        _, _, pool, gt, _ = filt._front_end(obs)
+        check(pool is not None, "no keypoints in the 32x32 observation")
+        sel = torch.randint(0, 256, (64,), generator=torch.Generator().manual_seed(3))
+        xt = torch.as_tensor(x0 + np.r_[0.02, -0.01, 0.01, 0, 0, 0, 0.01, 0, -0.02, 0, 0, 0]
+                             .astype(np.float32), device=dev)
+        outs.append([t.cpu() for t in filt.gn_fused(
+            xt, torch.as_tensor(NAV_HOVER, device=dev), torch.eye(12, device=dev) * 0.5,
+            pool, gt, sel.to(dev))])
+    (_, _, x_c, sig_c, l_c), (_, _, x_d, sig_d, l_d) = outs
+    x_rel = float((x_d - x_c).abs().max() / x_c.abs().max())
+    sig_rel = float((sig_d - sig_c).abs().max() / sig_c.abs().max())
+    log("one GN update at the CPU tests' size, this device vs the CPU port:", json.dumps({
+        "x_rel": x_rel, "sig_post_rel": sig_rel,
+        "lm_loss_rel": float(((l_d - l_c).abs() / l_c.abs()).max())}))
+    check(x_rel <= 1e-4, f"x {x_rel} away from the CPU port's")
+    check(sig_rel <= 1e-3, f"sig_post {sig_rel} away from the CPU port's")
+
+
+def nav_phase(device, sizes, card):
+    """Both parts of the nav phase; returns the fused-MLP launches in it
+    (nav forces the xla MLP, so 0)."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    nav = sizes["nav"]
+    nav_front_end()
+    fm.fused_mlp.launches = 0
+    nav_mission(device, nav, card)
+    nav_network(device, sizes, nav, card)
+    launches = fm.fused_mlp.launches
+    log(f"nav phase: fused_mlp launches {launches} (nav runs the xla MLP chain)")
+    check(launches == 0, f"the nav path launched the fused MLP {launches} times")
+    shutil.rmtree(NAV_WS, ignore_errors=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -701,13 +1054,13 @@ def main():
     if args.cpu_rehearsal:
         device = torch.device("cpu")
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
-                 "rays": 512}
+                 "rays": 512, "nav": NAV_SIZES["rehearsal"]}
     else:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
         device = torch.device("cuda")
         sizes = {"hw": 800, "grid": 128, "log2": 17, "frames": 3, "mlp_n": 32768,
-                 "rays": 4096}
+                 "rays": 4096, "nav": NAV_SIZES["card"]}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
@@ -730,13 +1083,15 @@ def main():
         return
     launches = slice_phase(device, sizes, card)
     train_launches = training_phase(device, sizes, card)
+    nav_launches = nav_phase(device, sizes, card)
     entry = {"name": "fused_mlp", "route": "cuda",
              "source": "nerfnav_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "nerfnav_tpu/ops/fused_mlp.py:58",
              "launches": launches, "max_abs_err": mlp["max_abs_err"],
              "ms": mlp["ms"], "plain_ms": mlp["plain_ms"],
              "bound_ms": mlp["bound_ms"], "bound_by": mlp["bound_by"],
-             "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches}
+             "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches,
+             "nav_launches": nav_launches}
     log(json.dumps({"kernels": [entry]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)
