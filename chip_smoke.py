@@ -287,13 +287,16 @@ def make_trainer(device, sizes, params=None, occupancy=None, density_scale=300.0
                    march_cfg=mcfg, occupancy=occupancy, device=device)
 
 
-def profile_call(fn, unprofiled_ms, what):
+def profile_call(fn, unprofiled_ms, what, host_ops=True):
     """One warm call under torch.profiler: the device time of every kernel,
-    its share of the unprofiled call's time, and the kernels that take most."""
+    its share of the unprofiled call's time, and the kernels that take most.
+    host_ops=False traces the card only, for calls of ~10^5 kernels whose
+    host-op trace takes minutes to process."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -836,7 +839,7 @@ class TickProbe:
         if i == self.PROFILE and self.device.type == "cuda":
             box = []
             self.profile = profile_call(lambda: box.append(self.fused.step(img, action)),
-                                        self.tick_ms[-1], "profiled nav tick")
+                                        self.tick_ms[-1], "profiled nav tick", host_ops=False)
             x, act = box[0]
         elif i == self.SYNCS and self.device.type == "cuda":
             (x, act), self.syncs = count_syncs(lambda: self.fused.step(img, action))

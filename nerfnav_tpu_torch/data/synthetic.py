@@ -10,6 +10,7 @@ ROADMAP A11.
 
 import torch
 
+from nerfnav_tpu_torch.device import device_const
 from nerfnav_tpu_torch.models.renderer import Field
 
 
@@ -74,11 +75,10 @@ def cluttered_field(sigma=300.0, bound=1.0):
     def sdf(x):
         ds = [x[:, 2] + 0.55]  # slab below z = -0.55
         for s in _SPHERES:
-            c = torch.tensor(s[:3], dtype=x.dtype, device=x.device)
+            c = device_const(s[:3], x.device)
             ds.append(torch.sqrt(((x - c) ** 2).sum(dim=-1) + 1e-12) - s[3])
         for b in _BOXES:
-            c = torch.tensor(b[:3], dtype=x.dtype, device=x.device)
-            h = torch.tensor(b[3:], dtype=x.dtype, device=x.device)
+            c, h = device_const(b[:3], x.device), device_const(b[3:], x.device)
             q = (x - c).abs() - h
             outside = torch.sqrt((torch.clamp(q, min=0.0) ** 2).sum(dim=-1) + 1e-12)
             inside = torch.clamp(q.amax(dim=-1), max=0.0)

@@ -1,4 +1,7 @@
-"""Device resolution and the error raised by options the port lacks."""
+"""Device resolution, cached device constants, and the error raised by
+options the port lacks."""
+
+from functools import lru_cache
 
 import torch
 
@@ -13,6 +16,24 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the port on the CPU")
     return dev
+
+
+@lru_cache(maxsize=None)
+def _const(values: tuple, device: str) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def device_const(values, device) -> torch.Tensor:
+    """A float32 tensor of `values` (a number or nested sequences) on
+    `device`, built once per device and shared: never write to it.
+
+    A fresh torch.tensor(..., device="cuda") is a host-to-device copy from
+    pageable memory, which waits for the card to drain its queue; a
+    constant inside a loop of small kernels would sync every iteration."""
+    def freeze(v):
+        return tuple(freeze(x) for x in v) if isinstance(v, (list, tuple)) else float(v)
+
+    return _const(freeze(values), str(torch.device(device)))
 
 
 def unported(what: str, item: str) -> NotImplementedError:

@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from nerfnav_tpu_torch.device import unported
+from nerfnav_tpu_torch.device import device_const, unported
 from nerfnav_tpu_torch.models import network as net
 
 
@@ -75,8 +75,8 @@ class RenderConfig:
 
 
 def aabb_of(bound: float, device="cpu"):
-    """Train AABB [-b, -b, -b, b, b, b] as a (6,) float32 tensor."""
-    return torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32, device=device)
+    """Train AABB [-b, -b, -b, b, b, b] as a shared (6,) float32 tensor."""
+    return device_const([-bound] * 3 + [bound] * 3, device)
 
 
 def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.2):
@@ -96,10 +96,10 @@ def linspace(start: float, stop: float, num: int, device="cpu"):
     s = i / (num - 1), the last entry exactly stop (torch.linspace counts
     the second half down from stop, which rounds differently)."""
     if num == 1:
-        return torch.tensor([start], dtype=torch.float32, device=device)
+        return torch.full((1,), start, dtype=torch.float32, device=device)
     step = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
     out = start * (1.0 - step) + stop * step
-    return torch.cat([out, torch.tensor([stop], dtype=torch.float32, device=device)])
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32, device=device)])
 
 
 def sample_pdf(bins, weights, n_samples: int, u=None):
@@ -158,6 +158,8 @@ def _clip(x, lo: float, hi: float):
 def _background(field: Field, bg_color, image):
     if field.bg_fn is not None and field.bg_radius > 0:
         raise unported("background network compositing", "A3")
+    if isinstance(bg_color, (int, float)):
+        return device_const(bg_color, image.device)
     return torch.as_tensor(bg_color, dtype=torch.float32, device=image.device)
 
 

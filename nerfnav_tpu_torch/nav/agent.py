@@ -13,7 +13,7 @@ from dataclasses import dataclass, field as dfield
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import resolve_device, unported
+from nerfnav_tpu_torch.device import device_const, resolve_device, unported
 from nerfnav_tpu_torch.nav.dynamics import DynamicsConfig, drone_dynamics
 from nerfnav_tpu_torch.nav.math_utils import vec_to_rot_matrix
 
@@ -26,10 +26,9 @@ BODY_TO_CAM = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]], np
 def body_state_to_camera_pose(x12):
     """(12,) state tensor -> (4, 4) camera-to-world pose, differentiable
     (the pose filter takes its forward-mode Jacobian through this)."""
-    R_cam = vec_to_rot_matrix(x12[6:9]) @ torch.as_tensor(BODY_TO_CAM, device=x12.device)
+    R_cam = vec_to_rot_matrix(x12[6:9]) @ device_const(BODY_TO_CAM.tolist(), x12.device)
     top = torch.cat([R_cam, x12[0:3, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=x12.device)
-    return torch.cat([top, bottom], dim=0)
+    return torch.cat([top, device_const(((0.0, 0.0, 0.0, 1.0),), x12.device)], dim=0)
 
 
 def add_noise_to_state(state, std, mean=0.0, rng=None):

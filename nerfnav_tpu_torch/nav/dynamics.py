@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import resolve_device
+from nerfnav_tpu_torch.device import device_const, resolve_device
 from nerfnav_tpu_torch.nav.math_utils import rot_matrix_to_vec, vec_to_rot_matrix
 
 
@@ -30,14 +30,15 @@ def drone_dynamics(state, action, cfg: DynamicsConfig):
     pos, vel, rv, omega = state[0:3], state[3:6], state[6:9], state[9:12]
     thrust, torque = action[0], action[1:]
     R = vec_to_rot_matrix(rv)
-    J = torch.diag(torch.tensor(cfg.inertia, dtype=state.dtype, device=state.device))
-    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=state.dtype, device=state.device)
+    J = torch.diag(device_const(cfg.inertia, state.device))
+    e3 = device_const((0.0, 0.0, 1.0), state.device)
 
     accel = (thrust / cfg.mass) * (R @ e3) - cfg.g * e3
     next_pos = pos + vel * cfg.dt
     next_vel = vel + accel * cfg.dt
     next_R = R @ vec_to_rot_matrix(omega * cfg.dt)
-    omega_dot = torch.linalg.solve(J, torque - torch.linalg.cross(omega, J @ omega))
+    # solve_ex: no info check, so no host sync
+    omega_dot = torch.linalg.solve_ex(J, torque - torch.linalg.cross(omega, J @ omega)).result
     next_omega = omega + omega_dot * cfg.dt
     return torch.cat([next_pos, next_vel, rot_matrix_to_vec(next_R), next_omega])
 

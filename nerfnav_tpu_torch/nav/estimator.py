@@ -35,6 +35,7 @@ from torch.func import hessian, jacfwd
 from nerfnav_tpu_torch.device import resolve_device, unported
 from nerfnav_tpu_torch.nav.dynamics import DynamicsConfig, drone_dynamics
 from nerfnav_tpu_torch.nav.math_utils import calc_se3_err, nearest_pd
+from nerfnav_tpu_torch.nav.optim import adam_init, adam_update
 
 
 def find_poi(img_uint8: np.ndarray, max_features: int = 100, backend: str = "sift",
@@ -109,19 +110,6 @@ class EstimatorConfig:
             raise unported("render_viz (the estimator triptych of nav/viz.py)", "A10")
 
 
-def _adam_update(x, grad, opt_state, lr):
-    """optax.adam(lr).update + apply_updates on one tensor; opt_state is
-    (count, mu, nu)."""
-    count, mu, nu = opt_state
-    count += 1
-    mu = 0.1 * grad + 0.9 * mu
-    nu = (1 - 0.999) * (grad * grad) + 0.999 * nu
-    bc1 = float(np.float32(1) - np.float32(0.9) ** np.float32(count))
-    bc2 = float(np.float32(1) - np.float32(0.999) ** np.float32(count))
-    u = (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)
-    return x + (-lr) * u, (count, mu, nu)
-
-
 class Estimator:
     def __init__(self, cfg: EstimatorConfig, dyn_cfg: DynamicsConfig, render_fn, get_rays_fn,
                  state_to_pose, workspace: str | None = None, get_rays_at_fn=None,
@@ -159,7 +147,6 @@ class Estimator:
         self.last_timings = None
         self.last_losses = None  # the last LM solve's losses, on the device
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._cache = {}
 
     def _predict(self, x, action):
         """(f(x), df/dx) of the dynamics step."""
@@ -211,15 +198,14 @@ class Estimator:
         """cfg.n_iters Adam steps, step i on the draws sels[i]. opt_state:
         (count, mu, nu) or None for a fresh one. Returns (x, opt_state,
         losses (n_iters,))."""
-        if opt_state is None:
-            opt_state = (0, torch.zeros_like(x), torch.zeros_like(x))
+        opt_state = adam_init([x]) if opt_state is None else opt_state
         losses = []
         for i in range(self.cfg.n_iters):
             xg = x.detach().requires_grad_(True)
             loss = self.measurement_loss(xg, pool_inds, gt_pixels, x_pred, sig_inv, sels[i])
             (grad,) = torch.autograd.grad(loss, [xg])
             with torch.no_grad():
-                x, opt_state = _adam_update(x.detach(), grad, opt_state, self.cfg.lr)
+                (x,), opt_state = adam_update([x.detach()], [grad], opt_state, self.cfg.lr)
             losses.append(loss.detach())
         return x, opt_state, torch.stack(losses)
 
@@ -276,7 +262,7 @@ class Estimator:
 
         eye = torch.eye(12, device=x0.device)
         x = x0
-        lam = torch.tensor(cfg.lm_lambda0, device=x0.device)
+        lam = torch.full((), cfg.lm_lambda0, device=x0.device)
         f0 = full_loss(x0)
         losses = []
         for _ in range(cfg.gn_iters):

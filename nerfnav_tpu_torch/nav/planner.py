@@ -12,8 +12,8 @@ plus the density met by a 10x10x5 body cloud swept along the trajectory.
 `learn_init` / `learn_update` run Adam with gradient clipping.
 
 The reference's `lax.scan` chunk is a loop of eager epochs here: loss,
-backward, optax's clip_by_global_norm(10) and optax's Adam written out on
-the two tensors, with every loss kept on the device until the chunk ends.
+backward, optax's clip_by_global_norm(10) and Adam (nav/optim.py) on the
+two tensors, with every loss kept on the device until the chunk ends.
 The static-horizon MPC mode's `active` waypoint count is a host int, known
 without reading the device.
 """
@@ -26,14 +26,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import resolve_device
+from nerfnav_tpu_torch.device import device_const, resolve_device
 from nerfnav_tpu_torch.models.renderer import linspace
 from nerfnav_tpu_torch.nav.astar import astar
 from nerfnav_tpu_torch.nav.dynamics import next_rotation
 from nerfnav_tpu_torch.nav.math_utils import rot_matrix_to_vec, vec_to_rot_matrix
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
-CLIP_NORM = 10.0
+from nerfnav_tpu_torch.nav.optim import adam_init, adam_update, clip_by_global_norm
 
 
 @dataclass(frozen=True)
@@ -89,7 +87,7 @@ def calc_everything(start_state, end_state, states, initial_accel, cfg: PlannerC
     and the terminal-velocity constraint moves to step 4 + active; with
     active == T (or None) this is the full-horizon rollup."""
     dev, dt, m = states.device, cfg.dt, cfg.mass
-    e3 = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    e3 = device_const((0.0, 0.0, 1.0), dev)
     g_vec = -cfg.g * e3
     start_pos, start_v = start_state[0:3], start_state[3:6]
     start_R = start_state[6:15].reshape(3, 3)
@@ -137,7 +135,7 @@ def calc_everything(start_state, end_state, states, initial_accel, cfg: PlannerC
     rel = torch.einsum("sij,sik->sjk", rot[:-1], rot[1:])  # R_t^T R_{t+1}
     omega = rot_matrix_to_vec(rel) / dt
     alpha = (omega[1:] - omega[:-1]) / dt
-    J = torch.diag(torch.tensor(cfg.inertia, device=dev))
+    J = torch.diag(device_const(cfg.inertia, dev))
     torques = alpha @ J.T + torch.linalg.cross(omega[:-1], omega[:-1] @ J.T)
     actions = torch.cat([thrust[: torques.shape[0], None], torques], dim=-1)
     return {"pos": pos, "vel": vel, "accel": accel, "rot": rot, "omega": omega,
@@ -153,7 +151,7 @@ def total_cost(start_state, end_state, states, initial_accel, density_fn,
     out = calc_everything(start_state, end_state, states, initial_accel, cfg, active=active)
     dev = states.device
     # thrust over all T+4 intervals: the tail without torque still pays it
-    fz_all = cfg.mass * _safe_norm(out["accel"] - torch.tensor([0.0, 0.0, -cfg.g], device=dev))
+    fz_all = cfg.mass * _safe_norm(out["accel"] - device_const((0.0, 0.0, -cfg.g), dev))
     torque2 = (out["actions"][:, 1:] ** 2).sum(dim=-1)
     s_all = fz_all.shape[0]
     nt = torque2.shape[0]
@@ -196,7 +194,7 @@ class Planner:
         alphas = linspace(0.0, 1.0, cfg.T + 2, self.device)[1:-1, None]
         pos = self.start_state[None, 0:3] * (1 - alphas) + self.end_state[None, 0:3] * alphas
         self.states = torch.cat([pos, torch.zeros((cfg.T, 1), device=self.device)], dim=-1)
-        self.initial_accel = torch.tensor([cfg.g, cfg.g], device=self.device)
+        self.initial_accel = device_const((cfg.g, cfg.g), self.device).clone()
         self.epoch = 0
         self.active = cfg.T  # live waypoints (static horizon)
 
@@ -267,11 +265,9 @@ class Planner:
         cfg = self.cfg
         use_active = cfg.static_horizon
         fade = self._fade_masks(n, ep0, (active + 4) if use_active else (cfg.T + 4))
+        # optax's leaf order: the params dict's sorted keys
         params = [initial_accel.detach().clone(), states.detach().clone()]
-        if opt is None:
-            opt = (0, [torch.zeros_like(p) for p in params],
-                   [torch.zeros_like(p) for p in params])
-        count0, mu, nu = opt[0], list(opt[1]), list(opt[2])
+        opt = adam_init(params) if opt is None else opt
         losses = []
         for i in range(n):
             for p in params:
@@ -281,23 +277,10 @@ class Planner:
                                  active=active if use_active else None)
             grads = torch.autograd.grad(loss, params)
             with torch.no_grad():
-                params = [p.detach() for p in params]
-                # optax.clip_by_global_norm: unchanged below the norm, else
-                # (g / norm) * max_norm
-                norm = torch.sqrt(sum((g * g).sum() for g in grads))
-                grads = [torch.where(norm < CLIP_NORM, g, (g / norm) * CLIP_NORM)
-                         for g in grads]
-                # optax.scale_by_adam, then scale by -lr
-                count = count0 + i + 1
-                bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(count))
-                bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(count))
-                for j, g in enumerate(grads):
-                    mu[j] = (1 - ADAM_B1) * g + ADAM_B1 * mu[j]
-                    nu[j] = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu[j]
-                    u = (mu[j] / bc1) / (torch.sqrt(nu[j] / bc2) + ADAM_EPS)
-                    params[j] = params[j] + (-cfg.lr) * u
+                params, opt = adam_update([p.detach() for p in params],
+                                          clip_by_global_norm(grads, 10.0), opt, cfg.lr)
             losses.append(loss.detach())
-        return params[1], params[0], torch.stack(losses), (count0 + n, mu, nu)
+        return params[1], params[0], torch.stack(losses), opt
 
     def _learn(self, epochs: int, tag: str):
         losses = []

@@ -90,6 +90,20 @@ def _fields(kind):
     return (lambda x: fj.density_fn(x)[0]), (lambda x: ft.density_fn(x)[0])
 
 
+@pytest.mark.parametrize("name", ["sphere_field", "cylinder_field", "textured_sphere_field",
+                                  "cluttered_field"])
+def test_analytic_fields(name):
+    """data/synthetic.py's closures: density and color within 1e-5."""
+    fj, ft = getattr(jsyn, name)(), getattr(tsyn, name)()
+    x = np.random.default_rng(6).uniform(-1, 1, (500, 3)).astype(np.float32)
+    d = x / np.linalg.norm(x, axis=-1, keepdims=True)
+    sj, gj = fj.density_fn(jnp.asarray(x))
+    st, gt = ft.density_fn(torch.as_tensor(x))
+    _close(st.numpy(), sj, 1e-5)
+    _close(ft.color_fn(torch.as_tensor(d), gt).numpy(), fj.color_fn(jnp.asarray(d), gj), 1e-5)
+    assert ft.bound == fj.bound
+
+
 @pytest.mark.parametrize("active", [None, 6, 3])
 def test_calc_everything(active):
     cj, ct = _cfgs()
