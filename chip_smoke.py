@@ -38,8 +38,38 @@
    the CPU port (loss 1e-5, gradients 1e-4 relative L2). A checkpoint
    written and loaded into a new Trainer renders the same crop (1e-6).
    Times 32 warm steps, one full and one partial sweep, and profiles one
-   step.
-5. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+   step. Its checkpoint (EMA params + occupancy) is kept for phase 5.
+5. Nav phase, the nav stack at full width (nav runs the xla MLP chain, so
+   the fused kernel must launch 0 times here):
+   (a) the closed-loop mission of `simulate --analytic` (textured sphere,
+       bound 1) through cli/simulate.py's build_mission and simulate:
+       800x800 observations at focal 800, 128 dense samples, GN filter at
+       batch 1024 / Jacobian batch 256 / 15 LM iterations / pool 16,384,
+       planner T = 20 at dt 0.1 with the 10x10x5 body cloud, native A* on
+       100^3 pooled to 20^3 at 0.3, 250-epoch replans, FusedMPC ticks. Cut
+       in depth: learn_init 500 epochs (of 2500) and 6 of the 20 steps (5
+       closed loop, 1 open loop). Start and goal are simulate.py's turned 90
+       degrees about the vertical, so the camera (body +x) faces the sphere.
+       Checks: A* finds a path on the native build, the learn_init loss
+       falls, the plan stays outside the sphere, every estimate is finite
+       within NAV_SIZES' pos_err of the truth, and tick 1 equals the unfused
+       sequence (estimate_state, update_state, learn_update,
+       get_next_action) from the same state and draws, at
+       tests/test_nav_fused.py's tolerances. Prints A* and learn_init ms,
+       every tick's ms, tick 1's front end / filter / replan split, a
+       card-only profile of tick 2 (kernels, idle share, top kernels) and
+       tick 3's host syncs by call site.
+   (b) the trained flagship field loaded as cli/simulate.py loads a trainer
+       checkpoint (`-O`: cell 4x8 @ 2^17, xla bf16 MLPs, bound 2): an
+       800x800 observation from the training orbit, one GN update on the
+       dense path and one on the frozen path (the march on the trained
+       occupancy), one 250-epoch replan from straight-line waypoints (no
+       A*: a 48-step field guarantees no free path). Checks: finite, the
+       LM loss never rises, the replan loss falls; then one GN update at
+       the CPU tests' size on the card against the CPU port (x 1e-4, the
+       posterior covariance 1e-3, relative to their largest entry).
+   Without cv2 the front end's find_poi is replaced by numpy_poi (printed).
+6. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -798,7 +828,8 @@ class TickProbe:
 
     def __init__(self, fused, device):
         self.fused, self.device = fused, device
-        self.tick_ms, self.split, self.profile, self.syncs = [], None, None, None
+        self.tick_ms, self.front_end_ms = [], []
+        self.split = self.profile = self.syncs = None
 
     def _snapshot(self):
         f, t = self.fused.filt, self.fused.traj
@@ -849,6 +880,7 @@ class TickProbe:
         self.tick_ms.append((time.perf_counter() - t0) * 1e3)
         check(self.fused.last_losses is not None and self.fused.last_timings is not None,
               f"nav tick {i} took the no-keypoint fallback")
+        self.front_end_ms.append(sum(self.fused.last_timings.values()))
         if i == self.CHECK:
             f, t = self.fused.filt, self.fused.traj
             got = (x.cpu(), f.sig.cpu(), t.states.cpu(), t.active, act.cpu())
@@ -909,7 +941,8 @@ def nav_mission(device, nav, card):
     check(max(errs) < nav["pos_err"], f"filter position errors {errs} m, bound {nav['pos_err']}")
     log("nav mission:", json.dumps({
         "card": card, "ticks": NAV_TICKS, "closed_loop": closed, "mission_s": mission_s,
-        "tick_ms": probe.tick_ms, "split_of_tick_1": probe.split,
+        "tick_ms": probe.tick_ms, "front_end_ms": probe.front_end_ms,
+        "split_of_tick_1": probe.split,
         "kernels_per_tick": probe.profile and probe.profile["kernel_launches"],
         "idle_share": probe.profile and probe.profile["device_idle_share_of_unprofiled_call"],
         "host_syncs_per_tick": probe.syncs and sum(probe.syncs.values()),
