@@ -145,7 +145,7 @@ class Estimator:
         self.Q = torch.eye(12, device=self.device) * cfg.q_diag
         self.iteration = 0
         self.last_timings = None
-        self.last_losses = None  # the last LM solve's losses, on the device
+        self.last_losses = None  # this update's LM losses (None without an LM solve)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
     def _predict(self, x, action):
@@ -351,9 +351,9 @@ class Estimator:
         numpy."""
         if self.xt is None:
             raise RuntimeError("call set_initial_state first")
-        H, W = obs_img.shape[:2]
         action = torch.as_tensor(np.asarray(action, np.float32), device=self.device)
-        img_f, poi, rays_pool, gt_pixels, t_walls = self._front_end(obs_img)
+        self.last_losses = None
+        _, _, rays_pool, gt_pixels, t_walls = self._front_end(obs_img)
         if rays_pool is None:
             # no features: the prediction is the estimate
             x_pred, A = self._predict(self.xt, action)

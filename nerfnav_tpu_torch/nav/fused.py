@@ -8,7 +8,7 @@ the LM solve (its accept/reject and damping are selects), the posterior, the
 divergence fallback (a torch.where, not a branch), the re-root and pop
 (`active` is a host int), one replan chunk from a fresh Adam state, and the
 flatness rollup to the next action. Capturing the tick in a CUDA graph is
-ROADMAP D.
+ROADMAP D3.
 """
 
 import torch
@@ -35,9 +35,9 @@ class FusedMPC:
         self.filt, self.traj = filt, traj
         self.H, self.W = H, W
         self.n_replan = int(n_replan or traj.cfg.epochs_update)
-        self.last_timings = None
-        self.last_plan_losses = None
-        self.last_losses = None
+        # this tick's front-end timings and LM / replan losses (None after a
+        # tick without keypoints)
+        self.last_timings = self.last_losses = self.last_plan_losses = None
 
     def cycle(self, pop: bool, xt, action, sig, pool, gt, sel, states, initial_accel,
               end_state, active: int):
@@ -68,6 +68,7 @@ class FusedMPC:
         filt, traj = self.filt, self.traj
         if filt.xt is None:
             raise RuntimeError("call set_initial_state first")
+        self.last_timings = self.last_losses = self.last_plan_losses = None
         _, _, pool, gt, t_walls = filt._front_end(obs_img)
         if pool is None:
             # a tick without features: the prior, through the unfused path

@@ -14,15 +14,11 @@ unused branch finite (a safe operand), so no derivative is NaN at theta = 0.
 import numpy as np
 import torch
 
+from nerfnav_tpu_torch.models.renderer import _clip
+
 
 def _eye3(like):
     return torch.eye(3, dtype=like.dtype, device=like.device)
-
-
-def _clip(x, lo: float, hi: float):
-    """jnp.clip with its gradient (half of it passes at a tie)."""
-    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo_t), lo_t + (hi - lo))
 
 
 def skew_matrix(v):
