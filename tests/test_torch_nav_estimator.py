@@ -292,6 +292,25 @@ def test_gn_fused_injected_draws(obs, frozen):
     assert et.iteration == ej.iteration == 1
 
 
+def test_gn_core_injected_draws(obs):
+    """gn_core alone (the LM solve from a given whitening factor): x, the
+    losses and 2 J^T J against the JAX solver's jitted gn_core."""
+    ej, et, _, _ = _estimators(gn_iters=3)
+    _, _, pool_j, gt_j, _ = ej._front_end(obs)
+    _, _, pool_t, gt_t, _ = et._front_end(obs)
+    key = jax.random.PRNGKey(3)
+    sel = _jax_sel(key, EST_KW["batch_size"], EST_KW["pool_size"])
+    x0, x_pred = _perturbed(), X0.copy()
+    a = np.random.default_rng(2).normal(size=(12, 12)).astype(np.float32) * 0.1
+    sig_chol = (np.eye(12) + a).astype(np.float32)
+    want = ej._build_update(H, W)[2](jnp.asarray(x0), pool_j, EST_KW["pool_size"], gt_j,
+                                     jnp.asarray(x_pred), jnp.asarray(sig_chol), key)
+    got = et.gn_core(torch.as_tensor(x0), pool_t, gt_t, torch.as_tensor(x_pred),
+                     torch.as_tensor(sig_chol), torch.as_tensor(sel))
+    for g, w in zip(got, want):
+        _close(g.numpy(), w, 1e-4)
+
+
 def test_adam_update_injected_draws(obs):
     """The Adam path: opt_run over n_iters steps, each on its own draws (the
     JAX scan's split keys), and the measurement Hessian."""
