@@ -56,9 +56,11 @@
        sequence (estimate_state, update_state, learn_update,
        get_next_action) from the same state and draws, at
        tests/test_nav_fused.py's tolerances. Prints A* and learn_init ms,
-       every tick's ms, tick 1's front end / filter / replan split, a
-       card-only profile of tick 2 (kernels, idle share, top kernels) and
-       tick 3's host syncs by call site.
+       every tick's ms and front-end ms, each fused tick's filter and
+       replan ms from CUDA events around them (not on ticks 2 and 3),
+       tick 1's front end / filter / replan split on the unfused sequence
+       (host clock), a card-only profile of tick 2 (kernels, idle share,
+       top kernels) and tick 3's host syncs by call site.
    (b) the trained flagship field loaded as cli/simulate.py loads a trainer
        checkpoint (`-O`: cell 4x8 @ 2^17, xla bf16 MLPs, bound 2): an
        800x800 observation from the training orbit, one GN update on the
@@ -828,8 +830,32 @@ class TickProbe:
 
     def __init__(self, fused, device):
         self.fused, self.device = fused, device
-        self.tick_ms, self.front_end_ms = [], []
+        self.tick_ms, self.front_end_ms, self.stage_ms = [], [], []
         self.split = self.profile = self.syncs = None
+
+    def _stage_events(self):
+        """For one tick, wraps the filter's gn_fused and the planner's
+        run_epochs so that each records a CUDA event before and after it:
+        no host read, so the tick runs as it would. The card idles most of
+        the tick, so the span between two events is close to the host's
+        time for the stage."""
+        f, t = self.fused.filt, self.fused.traj
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+        def timed(fn, start, end):
+            def call(*a, **k):
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                return out
+            return call
+
+        f.gn_fused = timed(f.gn_fused, ev[0], ev[1])
+        t.run_epochs = timed(t.run_epochs, ev[2], ev[3])
+        return ev
+
+    def _drop_stage_events(self):
+        del self.fused.filt.gn_fused, self.fused.traj.run_epochs  # the class methods again
 
     def _snapshot(self):
         f, t = self.fused.filt, self.fused.traj
@@ -865,22 +891,31 @@ class TickProbe:
             snap = self._snapshot()
             want = self._unfused(img, action)
             self._restore(snap)
+        cuda = self.device.type == "cuda"
+        ev = self._stage_events() if cuda and i not in (self.PROFILE, self.SYNCS) else None
         sync(self.device)
         t0 = time.perf_counter()
-        if i == self.PROFILE and self.device.type == "cuda":
-            box = []
-            self.profile = profile_call(lambda: box.append(self.fused.step(img, action)),
-                                        self.tick_ms[-1], "profiled nav tick", host_ops=False)
-            x, act = box[0]
-        elif i == self.SYNCS and self.device.type == "cuda":
-            (x, act), self.syncs = count_syncs(lambda: self.fused.step(img, action))
-        else:
-            x, act = self.fused.step(img, action)
-        sync(self.device)
+        try:
+            if i == self.PROFILE and cuda:
+                box = []
+                self.profile = profile_call(lambda: box.append(self.fused.step(img, action)),
+                                            self.tick_ms[-1], "profiled nav tick",
+                                            host_ops=False)
+                x, act = box[0]
+            elif i == self.SYNCS and cuda:
+                (x, act), self.syncs = count_syncs(lambda: self.fused.step(img, action))
+            else:
+                x, act = self.fused.step(img, action)
+            sync(self.device)
+        finally:
+            if ev is not None:
+                self._drop_stage_events()
         self.tick_ms.append((time.perf_counter() - t0) * 1e3)
         check(self.fused.last_losses is not None and self.fused.last_timings is not None,
               f"nav tick {i} took the no-keypoint fallback")
         self.front_end_ms.append(sum(self.fused.last_timings.values()))
+        self.stage_ms.append(ev and {"filter_ms": ev[0].elapsed_time(ev[1]),
+                                     "replan_ms": ev[2].elapsed_time(ev[3])})
         if i == self.CHECK:
             f, t = self.fused.filt, self.fused.traj
             got = (x.cpu(), f.sig.cpu(), t.states.cpu(), t.active, act.cpu())
@@ -942,7 +977,7 @@ def nav_mission(device, nav, card):
     log("nav mission:", json.dumps({
         "card": card, "ticks": NAV_TICKS, "closed_loop": closed, "mission_s": mission_s,
         "tick_ms": probe.tick_ms, "front_end_ms": probe.front_end_ms,
-        "split_of_tick_1": probe.split,
+        "filter_replan_ms_by_events": probe.stage_ms, "split_of_tick_1": probe.split,
         "kernels_per_tick": probe.profile and probe.profile["kernel_launches"],
         "idle_share": probe.profile and probe.profile["device_idle_share_of_unprofiled_call"],
         "host_syncs_per_tick": probe.syncs and sum(probe.syncs.values()),
