@@ -50,12 +50,16 @@
        in depth: learn_init 500 epochs (of 2500) and 6 of the 20 steps (5
        closed loop, 1 open loop). Start and goal are simulate.py's turned 90
        degrees about the vertical, so the camera (body +x) faces the sphere.
+       The filter starts NAV_X0_ERR (4 cm, 1.5 degrees) off the true start.
        Checks: A* finds a path on the native build, the learn_init loss
        falls, the plan stays outside the sphere, every estimate is finite
-       within NAV_SIZES' pos_err of the truth, and tick 1 equals the unfused
-       sequence (estimate_state, update_state, learn_update,
+       within NAV_SIZES' pos_err of the truth, the first update keeps less
+       than half of the initial position and rotation error (a filter that
+       returned its prediction would keep all of it), and tick 1 equals the
+       unfused sequence (estimate_state, update_state, learn_update,
        get_next_action) from the same state and draws, at
-       tests/test_nav_fused.py's tolerances. Prints the native A*'s first
+       tests/test_nav_fused.py's tolerances. Prints each tick's position
+       and rotation error beside its prediction's, the native A*'s first
        call (g++ build and load), A* and learn_init ms,
        every tick's ms and front-end ms, each fused tick's filter and
        replan ms from CUDA events around them (not on ticks 2 and 3),
@@ -64,20 +68,27 @@
        top kernels) and tick 3's host syncs by call site.
    (b) the trained flagship field loaded as cli/simulate.py loads a trainer
        checkpoint (`-O`: cell 4x8 @ 2^17, xla bf16 MLPs, bound 2): an
-       800x800 observation from the training orbit, one GN update on the
+       800x800 observation from the training orbit; the filter's dense,
+       frozen and grid renders at the true pose and at the update's start
+       (the dense one must reproduce the observation within NAV_TRUTH_MSE;
+       the frozen lattice must shade as the grid render does, 1e-5); the
+       residual Jacobian at full width, the card against the CPU port
+       loaded from the same checkpoint (NAV_JAC_TOL); one GN update on the
        dense path and one on the frozen path (the march on the trained
-       occupancy), one 250-epoch replan from straight-line waypoints (no
-       A*: a 48-step field guarantees no free path). Checks: finite, the
-       LM loss never rises, the replan loss falls; then one GN update at
-       the CPU tests' size on the card against the CPU port (x 1e-4, the
-       posterior covariance 1e-3, relative to their largest entry).
-   Without cv2 the front end's find_poi is replaced by numpy_poi (printed).
+       occupancy), each with its position and rotation error; one
+       250-epoch replan from straight-line waypoints (no A*: a 48-step
+       field guarantees no free path). Checks also: finite, the LM loss
+       never rises, the replan loss falls; then one GN update at the CPU
+       tests' size on the card against the CPU port (x 1e-4, the posterior
+       covariance 1e-3, relative to their largest entry).
+   The filter's keypoints need cv2: the nav phase fails early without it.
 6. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -609,6 +620,8 @@ def training_phase(device, sizes, card):
         "loss_first8": float(losses[:8].mean()), "loss_last8": float(losses[-8:].mean()),
         "fused_launches_in_steps": step_launches,
         "fused_launches_in_sweeps": sweep["launches"], "occupied_share": occ_share,
+        "occupancy_sha1": hashlib.sha1(tr.occupancy["bitfield"].cpu().numpy().tobytes())
+        .hexdigest()[:12],
         "mean_count": float(tr.state.mean_count), "budget": tr._current_budget()}))
     check(len(losses) == TRAIN_STEPS and bool(torch.isfinite(losses).all()),
           "a non-finite training loss")
@@ -737,46 +750,38 @@ def time_training(tr, arrays, H, W, device, card, launches_per_step):
 # ------------------------------------------------------------------ nav phase
 NAV_TICKS, NAV_OPEN_LOOP = 6, 1  # of the 20-step mission: 5 closed loop, 1 open
 NAV_HOVER = np.asarray([10.0, 0.0, 0.0, 0.0], np.float32)  # thrust m g
+# the mission's filter starts this far off the true start state (position
+# in metres, rotation vector in radians): its first update must remove most
+# of the error, which a filter that returned its prediction would keep
+# the filter's dense render (128 samples) at the true pose against the
+# agent's uint8 observation (192 samples) of the trained field, MSE: 8-bit
+# rounding alone is (1/255)^2 / 12 = 1.3e-6
+NAV_TRUTH_MSE = 1e-4
+# the residual Jacobian through the trained flagship field (bf16 MLPs), the
+# card against the CPU port, relative to its largest entry: the bound
+# tests/test_torch_nav_estimator.py holds the bf16 Jacobian to against JAX
+NAV_JAC_TOL = 3e-2
+NAV_X0_ERR = np.asarray([0.03, -0.02, 0.02, 0, 0, 0, 0.02, -0.015, 0.01, 0, 0, 0], np.float32)
 # the nav stack's full width on the card, toy sizes for the rehearsal; pos_err:
 # the bound on the filter's position error (metres) over the closed-loop
 # ticks under simulate.py's default process noise (2e-3 on every state dim)
 NAV_SIZES = {
     "card": {"obs": 800, "batch": 1024, "jac": 256, "gn_iters": 15, "pool": 16384,
              "epochs_init": 500, "epochs_update": 250, "astar_fine": 100, "pos_err": 0.02},
-    "rehearsal": {"obs": 48, "batch": 64, "jac": 32, "gn_iters": 4, "pool": 512,
+    "rehearsal": {"obs": 96, "batch": 256, "jac": 64, "gn_iters": 8, "pool": 2048,
                   "epochs_init": 20, "epochs_update": 5, "astar_fine": 40, "pos_err": 0.1},
 }
 
 
-def numpy_poi(img_uint8, max_features=100, backend="sift", downscale=1):
-    """Keypoints without cv2: the strongest local maxima (5x5) of the
-    gradient magnitude of the stride-2 gray image, (M, 2) int32 [x, y]."""
-    from scipy.ndimage import maximum_filter
-
-    s = 2
-    gray = img_uint8[::s, ::s].astype(np.float32).mean(axis=-1)
-    gy, gx = np.gradient(gray)
-    mag = np.hypot(gx, gy)
-    peaks = (mag == maximum_filter(mag, size=5)) & (mag > 0.1 * max(mag.max(), 1e-6))
-    ys, xs = np.nonzero(peaks)
-    order = np.argsort(-mag[ys, xs], kind="stable")[:max_features]
-    return (np.stack([xs[order], ys[order]], axis=-1) * s).astype(np.int32)
-
-
 def nav_front_end():
-    """The filter's keypoint detector: the port's find_poi where cv2 is
-    installed, else numpy_poi in its place. Prints which one runs."""
-    import importlib.util
-
-    from nerfnav_tpu_torch.nav import estimator
-
-    if importlib.util.find_spec("cv2") is not None:
-        log("nav front end: find_poi with cv2")
-        return "cv2"
-    estimator.find_poi = numpy_poi
-    log("nav front end: cv2 is not installed; numpy_poi (gradient maxima) replaces "
-        "find_poi, a host detector of pixel coordinates only")
-    return "numpy_poi"
+    """The filter's keypoint detector is find_poi, which needs cv2: fail
+    early, and say so, where it cannot be imported."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("the nav phase needs cv2 for the filter's keypoint detector "
+                           "(nav/estimator.py::find_poi); it cannot be imported") from e
+    log(f"nav front end: find_poi with cv2 {cv2.__version__}")
 
 
 def nav_opt(nav, device, *extra):
@@ -832,6 +837,7 @@ class TickProbe:
     def __init__(self, fused, device):
         self.fused, self.device = fused, device
         self.tick_ms, self.front_end_ms, self.stage_ms = [], [], []
+        self.x_pred = []  # each tick's prediction, the filter's prior
         self.split = self.profile = self.syncs = None
 
     def _stage_events(self):
@@ -888,6 +894,9 @@ class TickProbe:
 
     def step(self, img, action):
         i = len(self.tick_ms)
+        f = self.fused.filt
+        self.x_pred.append(f._predict(f.xt, torch.as_tensor(
+            action, dtype=torch.float32, device=self.device))[0].cpu().numpy())
         if i == self.CHECK:
             snap = self._snapshot()
             want = self._unfused(img, action)
@@ -947,6 +956,7 @@ def nav_mission(device, nav, card):
     start, goal = ["-0.67", "-0.39", "0.2"], ["0.55", "0.4", "0.16"]
     opt = nav_opt(nav, device, "--analytic", "--start", *start, "--goal", *goal)
     traj, agent, filt, fused = nav_mission_objects(opt, nav, device)
+    filt.set_initial_state(filt.xt.cpu().numpy() + NAV_X0_ERR)
     # the first native call builds astar.cpp with g++ (in a fresh checkout)
     # and loads it: kept out of the timed search
     t0 = time.perf_counter()
@@ -978,9 +988,10 @@ def nav_mission(device, nav, card):
     closed = NAV_TICKS - NAV_OPEN_LOOP
     check(len(history) == NAV_TICKS and len(probe.tick_ms) == closed,
           f"{len(history)} steps, {len(probe.tick_ms)} fused ticks")
-    errs = [float(np.linalg.norm(t[0:3] - e[0:3])) for t, e in history[:closed]]
     check(all(np.isfinite(e).all() for _, e in history), "a non-finite estimate")
-    check(max(errs) < nav["pos_err"], f"filter position errors {errs} m, bound {nav['pos_err']}")
+    post = [state_err(e, t) for t, e in history[:closed]]
+    prior = [state_err(p, t) for p, (t, _) in zip(probe.x_pred, history)]
+    errs, prior_errs = [e[0] for e in post], [e[0] for e in prior]
     log("nav mission:", json.dumps({
         "card": card, "ticks": NAV_TICKS, "closed_loop": closed, "mission_s": mission_s,
         "tick_ms": probe.tick_ms, "front_end_ms": probe.front_end_ms,
@@ -988,9 +999,23 @@ def nav_mission(device, nav, card):
         "kernels_per_tick": probe.profile and probe.profile["kernel_launches"],
         "idle_share": probe.profile and probe.profile["device_idle_share_of_unprofiled_call"],
         "host_syncs_per_tick": probe.syncs and sum(probe.syncs.values()),
-        "host_sync_sites": probe.syncs, "pos_err_m": errs,
+        "host_sync_sites": probe.syncs, "pos_err_m": errs, "pos_err_of_prediction_m": prior_errs,
+        "rot_err_deg": [e[1] for e in post], "rot_err_of_prediction_deg": [e[1] for e in prior],
         "final_lm_loss": float(fused.last_losses[-1]),
         "replan_loss": [float(fused.last_plan_losses[0]), float(fused.last_plan_losses[-1])]}))
+    check(max(errs) < nav["pos_err"], f"filter position errors {errs} m, bound {nav['pos_err']}")
+    check(errs[0] < 0.5 * prior_errs[0] and post[0][1] < 0.5 * prior[0][1],
+          f"the first update kept more than half of the initial error: position {errs[0]} "
+          f"of {prior_errs[0]} m, rotation {post[0][1]} of {prior[0][1]} deg")
+
+
+def state_err(x, truth):
+    """(position error in metres, rotation error in degrees) of a 12-dim
+    state against the true one."""
+    from nerfnav_tpu_torch.nav.math_utils import calc_so3_err, vec_to_rot_matrix
+
+    R = vec_to_rot_matrix(torch.as_tensor(np.stack([x[6:9], truth[6:9]]), dtype=torch.float32))
+    return float(np.linalg.norm(x[0:3] - truth[0:3])), calc_so3_err(R[0].numpy(), R[1].numpy())
 
 
 def camera_state(pose):
@@ -1008,8 +1033,9 @@ def camera_state(pose):
 def nav_network(device, sizes, nav, card):
     """Part (b): the trained flagship field (the training phase's EMA params
     and occupancy, loaded as cli/simulate.py loads a trainer checkpoint):
-    one GN update on the dense path and one on the frozen path from a pose
-    on the training orbit, and one replan through the field's density."""
+    the filter's renders at the true pose, one GN update on the dense path
+    and one on the frozen path from a pose on the training orbit, and one
+    replan through the field's density."""
     from nerfnav_tpu_torch.nav.agent import body_state_to_camera_pose
 
     x_true = camera_state(yaw_pose(45.0))
@@ -1018,18 +1044,26 @@ def nav_network(device, sizes, nav, card):
     dx[0:3], dx[6:9] = [0.01, -0.008, 0.006], [0.004, -0.006, 0.003]
     base = ("-O", "--grid_hashmap_log2", str(sizes["log2"]), "--grid_size", str(sizes["grid"]))
     out = {"card": card}
-    img = None
-    for mode in ("dense", "frozen"):
+    img, filts = None, {}
+    for mode in ("dense", "frozen", "grid"):
         opt = nav_opt(nav, device, *base, "--filter_render", mode)
-        traj, agent, filt, _ = nav_mission_objects(opt, nav, device)
-        check(filt.march_fn is not None if mode == "frozen" else filt.march_fn is None,
-              f"--filter_render {mode} did not get the trained occupancy")
-        if img is None:
+        traj_m, agent, filts[mode], _ = nav_mission_objects(opt, nav, device)
+        if mode == "dense":
+            traj = traj_m
             sync(device)
             t0 = time.perf_counter()
             img = agent.get_img(pose)
             out["observation_ms"] = (time.perf_counter() - t0) * 1e3
             out["observation_mean"] = float(img.mean())
+    check(filts["frozen"].march_fn is not None and filts["dense"].march_fn is None,
+          "--filter_render frozen did not get the trained occupancy")
+    out["renders_at_truth"] = renders_at_truth(filts, img, x_true, dx, nav["batch"], device)
+    cpu = torch.device("cpu")
+    cpu_opt = nav_opt(nav, cpu, *base, "--filter_render", "dense")
+    jacobian_card_vs_cpu(filts["dense"], nav_mission_objects(cpu_opt, nav, cpu)[2], img,
+                         x_true + dx)
+    for mode in ("dense", "frozen"):
+        filt = filts[mode]
         filt.set_initial_state(x_true + dx)
         t0 = time.perf_counter()
         x = filt.estimate_state(img, pose, NAV_HOVER)
@@ -1038,20 +1072,90 @@ def nav_network(device, sizes, nav, card):
         lm = filt.last_losses.cpu().numpy()
         check(np.isfinite(x).all() and np.isfinite(lm).all(), f"{mode}: non-finite update")
         check((np.diff(lm) <= 0).all(), f"{mode}: the LM loss rose {lm.tolist()}")
+        before, after = state_err(x_true + dx, x_true), state_err(x, x_true)
         out[mode] = {"update_ms": ms, "lm_loss_first_last": [float(lm[0]), float(lm[-1])],
-                     "pos_err_before_after": [float(np.linalg.norm(dx[0:3])),
-                                              float(np.linalg.norm(x[0:3] - x_true[0:3]))]}
+                     "pos_err_before_after": [before[0], after[0]],
+                     "rot_err_deg_before_after": [before[1], after[1]]}
     # straight-line waypoints (A* is skipped: a 48-step field guarantees no
     # free path between the endpoints)
     t0 = time.perf_counter()
     losses = np.asarray(traj.learn_update(0))
     out["replan_ms"] = (time.perf_counter() - t0) * 1e3
     out["replan_loss_first_last"] = [float(losses[0]), float(losses[-1])]
+    log("nav on the trained field:", json.dumps(out))
     check(np.isfinite(losses).all() and losses[-1] < losses[0],
           f"the replan loss {losses[0]} -> {losses[-1]} did not fall")
-    log("nav on the trained field:", json.dumps(out))
     if device.type == "cuda":
         nav_card_vs_cpu(device)
+
+
+def renders_at_truth(filts, img, x_true, dx, n, device):
+    """The filter's renders of its first n pool pixels at the true pose and
+    at the update's start (x_true + dx), against the observation: the
+    photometric MSE of each path, the frozen lattice's shade against the
+    grid render (the same march and shade, so equal), and the share of
+    valid samples in that march. Checks that the dense render at the truth
+    reproduces the observation (NAV_TRUTH_MSE) and that the frozen render
+    equals the grid render."""
+    from nerfnav_tpu_torch.nav.agent import body_state_to_camera_pose
+
+    dense, frozen = filts["dense"], filts["frozen"]
+    _, _, pool, gt, _ = dense._front_end(img)
+    check(pool is not None, "no keypoints in the trained field's observation")
+    inds, gt = pool[:n], gt[:n]
+    res = {}
+    with torch.no_grad():
+        for name, x in (("truth", x_true), ("start", x_true + dx)):
+            ro, rd = dense._rays(body_state_to_camera_pose(torch.as_tensor(x, device=device)),
+                                 inds)
+            d_img = dense.render_fn(ro, rd)["image"]
+            m = frozen.march_fn(ro, rd)
+            f_img = frozen.render_frozen_fn(ro, rd, m["z"], m["dt"], m["valid"])["image"]
+            res[f"mse_dense_at_{name}"] = float(((d_img - gt) ** 2).mean())
+            res[f"mse_frozen_at_{name}"] = float(((f_img - gt) ** 2).mean())
+            if name == "truth":
+                g_img = filts["grid"].render_fn(ro, rd)["image"]
+                res["frozen_vs_grid_max_abs"] = float((f_img - g_img).abs().max())
+                res["frozen_vs_dense_mean_abs"] = float((f_img - d_img).abs().mean())
+                res["march_valid_share"] = float(m["valid"].float().mean())
+                res["rays_with_samples_share"] = float(m["valid"].any(dim=1).float().mean())
+    log("nav filter renders at the truth, trained field:", json.dumps(res))
+    check(res["mse_dense_at_truth"] <= NAV_TRUTH_MSE,
+          f"the dense render at the truth is {res['mse_dense_at_truth']} (MSE) away from "
+          f"the observation, bound {NAV_TRUTH_MSE}")
+    check(res["frozen_vs_grid_max_abs"] <= 1e-5,
+          f"the frozen render differs from the grid render: {res['frozen_vs_grid_max_abs']}")
+    return res
+
+
+def jacobian_card_vs_cpu(filt, filt_cpu, img, x, n=32):
+    """The residuals and their 12-column forward-mode Jacobian (as gn_core
+    builds them) at x on the filter's first n pool pixels, through the
+    trained flagship field at full width: the card against the CPU port
+    loaded from the same checkpoint."""
+    from torch.func import jacfwd
+
+    _, _, pool, gt, _ = filt._front_end(img)
+    outs = []
+    for f in (filt, filt_cpu):
+        xt = torch.as_tensor(x, device=f.device)
+        inds, g = pool[:n].to(f.device), gt[:n].to(f.device)
+
+        def res(v, f=f, xt=xt, inds=inds, g=g):
+            r = f.residuals_of(v, inds, g, xt, torch.eye(12, device=f.device))
+            return r, r
+
+        with torch.no_grad():
+            J, r = jacfwd(res, has_aux=True)(xt)
+        outs.append((r.cpu(), J.cpu()))
+    (r_d, J_d), (r_c, J_c) = outs
+    j_rel = float((J_d - J_c).abs().max() / J_c.abs().max())
+    r_rel = float((r_d - r_c).abs().max() / r_c.abs().max())
+    log("residual Jacobian through the trained field, this device vs the CPU port:",
+        json.dumps({"rays": n, "J_rel": j_rel, "r_rel": r_rel, "J_max": float(J_c.abs().max()),
+                    "bound": NAV_JAC_TOL}))
+    check(j_rel <= NAV_JAC_TOL and r_rel <= NAV_JAC_TOL,
+          f"the Jacobian (or residuals) {j_rel} ({r_rel}) away from the CPU port's")
 
 
 def nav_card_vs_cpu(device):

@@ -296,7 +296,8 @@ def _shade_dense(field: Field, rays_o, rays_d, z, valid, bound: float):
     """Field over the full (N, K) lattice: density at o + d z (invalid slots
     zeroed), color from each ray's direction encoded once."""
     n, k = z.shape
-    pos = torch.clamp(rays_o[:, None, :] + rays_d[:, None, :] * z[..., None], -bound, bound)
+    # _clip: the frozen filter path takes forward-mode derivatives here
+    pos = _clip(rays_o[:, None, :] + rays_d[:, None, :] * z[..., None], -bound, bound)
     sigmas, geo = field.density_fn(pos.reshape(-1, 3))
     sigmas = torch.where(valid.reshape(-1), sigmas, 0.0).reshape(n, k)
     if field.encode_dir_fn is None:  # analytic fields: color from directions
