@@ -72,8 +72,10 @@
        frozen and grid renders at the true pose and at the update's start
        (the dense one must reproduce the observation within NAV_TRUTH_MSE;
        the frozen lattice must shade as the grid render does, 1e-5); the
-       residual Jacobian at full width, the card against the CPU port
-       loaded from the same checkpoint (NAV_JAC_TOL); one GN update on the
+       residual Jacobian at full width on the filter's Jacobian batch, the
+       card against the CPU port loaded from the same checkpoint, with the
+       nav path's bf16 MLPs and with float32 MLPs (NAV_JAC_BF16_TOL,
+       NAV_JAC_F32_TOL); one GN update on the
        dense path and one on the frozen path (the march on the trained
        occupancy), each with its position and rotation error; one
        250-epoch replan from straight-line waypoints (no A*: a 48-step
@@ -757,10 +759,13 @@ NAV_HOVER = np.asarray([10.0, 0.0, 0.0, 0.0], np.float32)  # thrust m g
 # agent's uint8 observation (192 samples) of the trained field, MSE: 8-bit
 # rounding alone is (1/255)^2 / 12 = 1.3e-6
 NAV_TRUTH_MSE = 1e-4
-# the residual Jacobian through the trained flagship field (bf16 MLPs), the
-# card against the CPU port, relative to its largest entry: the bound
-# tests/test_torch_nav_estimator.py holds the bf16 Jacobian to against JAX
-NAV_JAC_TOL = 3e-2
+# the render's Jacobian through the trained flagship field along the
+# filter's ray derivatives, from the same rays, the card against the CPU
+# port, relative to its largest entry (the image: absolute): with float32
+# MLPs the bound tests/test_torch_nav_estimator.py holds float32 Jacobians
+# to against JAX, with the nav path's bf16 MLPs the one it holds bf16 ones to
+NAV_JAC_F32_TOL = 1e-4
+NAV_JAC_BF16_TOL = 3e-2
 NAV_X0_ERR = np.asarray([0.03, -0.02, 0.02, 0, 0, 0, 0.02, -0.015, 0.01, 0, 0, 0], np.float32)
 # the nav stack's full width on the card, toy sizes for the rehearsal; pos_err:
 # the bound on the filter's position error (metres) over the closed-loop
@@ -1058,10 +1063,19 @@ def nav_network(device, sizes, nav, card):
     check(filts["frozen"].march_fn is not None and filts["dense"].march_fn is None,
           "--filter_render frozen did not get the trained occupancy")
     out["renders_at_truth"] = renders_at_truth(filts, img, x_true, dx, nav["batch"], device)
+    # the same checkpoint with float32 MLPs: -O's flagship grid flag by flag
+    f32 = ("--grid_levels", "4", "--grid_level_dim", "8", "--grid_layout", "cell",
+           "--grid_hashmap_log2", str(sizes["log2"]), "--grid_size", str(sizes["grid"]),
+           "--filter_render", "dense")
     cpu = torch.device("cpu")
-    cpu_opt = nav_opt(nav, cpu, *base, "--filter_render", "dense")
-    jacobian_card_vs_cpu(filts["dense"], nav_mission_objects(cpu_opt, nav, cpu)[2], img,
-                         x_true + dx)
+
+    def filt_on(dev, *args):
+        return nav_mission_objects(nav_opt(nav, dev, *args), nav, dev)[2]
+
+    jacobian_card_vs_cpu(
+        {"bfloat16": (filts["dense"], filt_on(cpu, *base, "--filter_render", "dense")),
+         "float32": (filt_on(device, *f32), filt_on(cpu, *f32))},
+        img, x_true + dx, nav["jac"])
     for mode in ("dense", "frozen"):
         filt = filts[mode]
         filt.set_initial_state(x_true + dx)
@@ -1128,34 +1142,102 @@ def renders_at_truth(filts, img, x_true, dx, n, device):
     return res
 
 
-def jacobian_card_vs_cpu(filt, filt_cpu, img, x, n=32):
-    """The residuals and their 12-column forward-mode Jacobian (as gn_core
-    builds them) at x on the filter's first n pool pixels, through the
-    trained flagship field at full width: the card against the CPU port
-    loaded from the same checkpoint."""
+def jacobian_card_vs_cpu(pairs, img, x, n):
+    """The filter's 12-column forward-mode Jacobian of its rendered pixels
+    at x, on its first n pool pixels (its Jacobian batch), through the
+    trained flagship field at full width: for each MLP dtype, the card's
+    filter against the CPU port's loaded from the same checkpoint. pairs:
+    {"bfloat16" | "float32": (card filter, CPU filter)}.
+
+    The field is piecewise trilinear in position (the hash grid) with ReLU
+    MLPs, so its derivative jumps where a sample crosses a cell boundary: a
+    pose that differs in its last bits (the card's sin/cos and matmuls round
+    differently) moves J by percents. So the check follows the chain rule
+    of the filter's J: the rays and their derivatives with respect to x,
+    card against CPU (smooth, so NAV_JAC_F32_TOL entry by entry); then the
+    render's Jacobian along the CPU's ray derivatives, from the CPU's
+    float32 rays on both devices, so that the samples lie on the same side
+    of every boundary (NAV_JAC_F32_TOL, NAV_JAC_BF16_TOL, relative to the
+    largest entry; the image within the same, absolute). Also reports the
+    filter's own J(x) card against CPU and the CPU's J(x) against J at x
+    shifted by 1e-7, which show the jumps."""
     from torch.func import jacfwd
 
-    _, _, pool, gt, _ = filt._front_end(img)
-    outs = []
-    for f in (filt, filt_cpu):
-        xt = torch.as_tensor(x, device=f.device)
-        inds, g = pool[:n].to(f.device), gt[:n].to(f.device)
+    card_f, cpu_f = pairs["float32"]
+    _, _, pool, gt, _ = cpu_f._front_end(img)
+    inds, gt = pool[:n].cpu(), gt[:n].cpu()
 
-        def res(v, f=f, xt=xt, inds=inds, g=g):
-            r = f.residuals_of(v, inds, g, xt, torch.eye(12, device=f.device))
-            return r, r
+    def rays_of(v, f):
+        ro, rd = f._rays(f.state_to_pose(v), inds.to(f.device))
+        return torch.cat([ro, rd], -1)
+
+    ray_pairs = []
+    for f in (card_f, cpu_f):
+        xt = torch.as_tensor(x, device=f.device)
+        with torch.no_grad():  # (n, 6), (n, 6, 12)
+            ray_pairs.append((rays_of(xt, f).cpu(), jacfwd(rays_of)(xt, f).cpu()))
+    rays, d_rays = ray_pairs[1]
+    J, img_at = {}, {}
+    for dtype, pair in pairs.items():
+        for where, f in zip(("card", "cpu"), pair):
+            r0, dr = rays.to(f.device), d_rays.to(f.device)
+
+            def image(v, f=f, r0=r0, dr=dr):
+                rr = r0 + dr @ v  # == r0 at v = 0
+                out = f.render_fn(rr[:, :3], rr[:, 3:])["image"].reshape(-1)
+                return out, out
+
+            with torch.no_grad():
+                J[dtype, where], img_at[dtype, where] = (
+                    t.cpu().double() for t in jacfwd(image, has_aux=True)(
+                        torch.zeros(12, device=f.device)))
+
+    def max_rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def frob_rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    res = {"rays": n, "J_max": float(J["float32", "cpu"].abs().max()),
+           "rays_max_abs_rel": max_rel(ray_pairs[0][0].double(), rays.double()),
+           "ray_derivatives_max_abs_rel": max_rel(ray_pairs[0][1].double(), d_rays.double())}
+    for dtype in pairs:
+        a, b = J[dtype, "card"], J[dtype, "cpu"]
+        res[dtype] = {"J_max_abs_rel": max_rel(a, b), "J_frobenius_rel": frob_rel(a, b),
+                      "image_max_abs": float((img_at[dtype, "card"]
+                                              - img_at[dtype, "cpu"]).abs().max())}
+    res["bfloat16_vs_float32_cpu_J_max_abs_rel"] = max_rel(J["bfloat16", "cpu"],
+                                                           J["float32", "cpu"])
+
+    # the filter's own J(x), float32 MLPs: card vs CPU, and CPU vs CPU at x + shift
+    shift = np.zeros(12, np.float32)
+    shift[[0, 1, 2, 6, 7, 8]] = np.random.default_rng(0).choice([-1e-7, 1e-7], 6)
+    e2e = {}
+    for where, f, xx in (("card", pairs["float32"][0], x), ("cpu", cpu_f, x),
+                         ("cpu_shifted", cpu_f, x + shift)):
+        i, g, xp = inds.to(f.device), gt.to(f.device), torch.as_tensor(x, device=f.device)
+
+        def res_of(v, f=f, i=i, g=g, xp=xp):
+            return f.residuals_of(v, i, g, xp, torch.eye(12, device=f.device))[:3 * n]
 
         with torch.no_grad():
-            J, r = jacfwd(res, has_aux=True)(xt)
-        outs.append((r.cpu(), J.cpu()))
-    (r_d, J_d), (r_c, J_c) = outs
-    j_rel = float((J_d - J_c).abs().max() / J_c.abs().max())
-    r_rel = float((r_d - r_c).abs().max() / r_c.abs().max())
-    log("residual Jacobian through the trained field, this device vs the CPU port:",
-        json.dumps({"rays": n, "J_rel": j_rel, "r_rel": r_rel, "J_max": float(J_c.abs().max()),
-                    "bound": NAV_JAC_TOL}))
-    check(j_rel <= NAV_JAC_TOL and r_rel <= NAV_JAC_TOL,
-          f"the Jacobian (or residuals) {j_rel} ({r_rel}) away from the CPU port's")
+            e2e[where] = jacfwd(res_of)(torch.as_tensor(xx, device=f.device)).cpu().double()
+    res["filter_J_of_x_card_vs_cpu"] = {"max_abs_rel": max_rel(e2e["card"], e2e["cpu"]),
+                                        "frobenius_rel": frob_rel(e2e["card"], e2e["cpu"])}
+    res["filter_J_of_x_cpu_shifted_1e-7_vs_cpu"] = {
+        "max_abs_rel": max_rel(e2e["cpu_shifted"], e2e["cpu"]),
+        "frobenius_rel": frob_rel(e2e["cpu_shifted"], e2e["cpu"])}
+    res["bounds"] = {"float32": NAV_JAC_F32_TOL, "bfloat16": NAV_JAC_BF16_TOL}
+    log("render Jacobian through the trained field, this device vs the CPU port:",
+        json.dumps(res))
+    check(max(res["rays_max_abs_rel"], res["ray_derivatives_max_abs_rel"]) <= NAV_JAC_F32_TOL,
+          f"the rays (their derivatives) {res['rays_max_abs_rel']} "
+          f"({res['ray_derivatives_max_abs_rel']}) away from the CPU port's, "
+          f"bound {NAV_JAC_F32_TOL}")
+    for dtype, tol in (("float32", NAV_JAC_F32_TOL), ("bfloat16", NAV_JAC_BF16_TOL)):
+        check(res[dtype]["J_max_abs_rel"] <= tol and res[dtype]["image_max_abs"] <= tol,
+              f"{dtype} MLPs: the render Jacobian (image) {res[dtype]['J_max_abs_rel']} "
+              f"({res[dtype]['image_max_abs']}) away from the CPU port's, bound {tol}")
 
 
 def nav_card_vs_cpu(device):

@@ -16,6 +16,7 @@ stratified jitter and the importance-sampling draws), not drawn inside.
 """
 
 from dataclasses import dataclass
+from functools import lru_cache
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -91,15 +92,24 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.2):
     return near, far
 
 
-def linspace(start: float, stop: float, num: int, device="cpu"):
-    """jnp.linspace's float32 values: start (1 - s) + stop s with
-    s = i / (num - 1), the last entry exactly stop (torch.linspace counts
-    the second half down from stop, which rounds differently)."""
+@lru_cache(maxsize=None)
+def _linspace_values(start: float, stop: float, num: int) -> tuple:
     if num == 1:
-        return torch.full((1,), start, dtype=torch.float32, device=device)
-    step = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
+        return (start,)
+    step = torch.arange(num - 1, dtype=torch.float32) / (num - 1)
     out = start * (1.0 - step) + stop * step
-    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32, device=device)])
+    return tuple(out.tolist()) + (stop,)
+
+
+def linspace(start: float, stop: float, num: int, device="cpu"):
+    """jnp.linspace's float32 values within a bit: start (1 - s) + stop s
+    with s = i / (num - 1), the last entry exactly stop (torch.linspace
+    counts the second half down from stop, which rounds differently).
+    Computed once on the CPU and shared on `device` as a constant, so every
+    device gets the same bits (CUDA divides by a scalar as a multiply by its
+    reciprocal, which can end a bit off): a sample one bit away can sit
+    across a hash-grid cell boundary, where the field's derivative jumps."""
+    return device_const(_linspace_values(float(start), float(stop), num), device)
 
 
 def sample_pdf(bins, weights, n_samples: int, u=None):

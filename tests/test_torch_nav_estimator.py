@@ -162,6 +162,19 @@ def test_render_rays(kind, upsample, keyed):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("num", [2, 24, 128, 513])
+def test_linspace_bits(num):
+    """The dense lattice's linspace: i / (num - 1) rounded once, within a bit
+    of jnp.linspace (which multiplies by the reciprocal), and one shared
+    constant per device, so every device samples at the same bits."""
+    s = np.arange(num - 1, dtype=np.float32) / np.float32(num - 1)
+    got = trend.linspace(0.0, 1.0, num, "cpu")
+    np.testing.assert_array_equal(got.numpy(), np.append(s, np.float32(1.0)))
+    want = np.asarray(jax.jit(lambda: jnp.linspace(0.0, 1.0, num, dtype=jnp.float32))())
+    np.testing.assert_array_max_ulp(got.numpy(), want, maxulp=1)
+    assert trend.linspace(0.0, 1.0, num, "cpu") is got
+
+
 def test_sample_pdf_and_render_image():
     rng = np.random.default_rng(3)
     w = rng.uniform(0, 1, (10, 7)).astype(np.float32)
