@@ -8,9 +8,10 @@
    every CUDA kernel of the port from csrc/ (one nvcc per source, started
    together).
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main paths' shapes (the eval round's and a dense train step's),
-   ragged ones and the edges of the kernel's contract (fused MLP: atol = rtol = 2e-2, the bound tests/test_fused_mlp.py
-   uses; hidden activations are re-rounded to bf16, so a different f32
+   at the main paths' shapes (the eval round's, a grid train step's and a
+   dense train step's, 4096 rays x 512 samples), ragged ones and the edges
+   of the kernel's contract (fused MLP: atol = rtol = 2e-2, the bound
+   tests/test_fused_mlp.py uses; hidden activations are re-rounded to bf16, so a different f32
    summation order can move one by a bf16 step), then timed with CUDA events
    beside the plain version and a library call, at the main path's N and at
    8 x N. With --kernels-only the script stops here, with no result line.
@@ -84,7 +85,28 @@
        tests' size on the card against the CPU port (x 1e-4, the posterior
        covariance 1e-3, relative to their largest entry).
    The filter's keypoints need cv2: the nav phase fails early without it.
-6. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+6. Reference phase, the reference-exact configuration through
+   cli/main_nerf.py at full width (corner hash grid 16x2 @ 2^19, vertex
+   convention, sigma 32-64-16 and color 31-64-64-3 fused MLPs, f32 masters,
+   bound 1, 4096 rays): make_synthetic_scene writes 8 train and 2 val views
+   of the analytic sphere at 800x800 (seed REF_SCENE_SEED) under build/.
+   First the hash grid at bound 1.5 on 2^16 points next to cell faces, the
+   card against the CPU port (every cell equal, features 1e-6). The grid run
+   (`--cuda_ray --ff`, the default dt_gamma 1/128: the static gamma ladder)
+   trains REF_SIZES' steps through main_nerf.main and must gain
+   REF_PSNR_GAIN dB of val PSNR over the untrained field; its eval march of
+   a 64x64 crop, card against CPU from the same rays, keeps equal valid
+   rows on REF_MARCH_RAYS_EQUAL of the rays and z / dt within
+   REF_MARCH_ZDT_TOL, the crop's image within 5e-3; `--test` then writes
+   the frames, depth maps and the video (or logs why not). The dense run
+   (`--ff`, 512 samples a ray) trains a few steps through the CLI's Trainer
+   (the loss of one fixed batch must fall), one dense step at 256 rays with
+   xla fp32 MLPs is held card against CPU (loss 1e-5, gradients 1e-4), and
+   `--test` writes its frames. Each run must launch the fused kernel.
+   Prints both paths' ms per step (with a profiled step's idle share) and
+   per 800x800 frame, their fused launches per step and per frame, and the
+   phase-A candidates per ray of the gamma ladder and the dt_gamma=0 one.
+7. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -190,7 +212,7 @@ def mlp_bound_ms(n, dims):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(device, n_full, timer):
+def kernel_phase(device, n_full, n_dense, timer):
     """Fused MLP vs its plain version; returns the kernels-line entry fields."""
     from nerfnav_tpu_torch.ops import fused_mlp as fm
 
@@ -220,6 +242,9 @@ def kernel_phase(device, n_full, timer):
         # the f32 master weights the step passes
         x = torch.randn((8 * n_full, dims[0]), generator=gen).to(device)
         compare(x, ws, "relu", "none", f"{name} N={8 * n_full}, f32 weights")
+        # a dense step's N (4096 rays x 512 samples at full size)
+        x = torch.randn((n_dense, dims[0]), generator=gen).to(device)
+        compare(x, ws, "relu", "none", f"{name} N={n_dense} (dense step), f32 weights")
     # the contract's edges: depth, width, narrow nets, ragged tiles, and x
     # that starts one row (124 bytes) into its buffer
     for name, (dims, n) in MLP_EDGES.items():
@@ -1306,6 +1331,366 @@ def nav_phase(device, sizes, card):
     return launches
 
 
+# ------------------------------------------------------------ reference phase
+REF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ref")
+# the val PSNR the grid run must gain over the untrained field, in dB (the
+# bar tests/test_trainer_e2e.py sets for the JAX trainer)
+REF_PSNR_GAIN = 4.0
+# card vs CPU march of a 64x64 crop from the same rays: the share of rays
+# whose valid row must be equal, and the z / dt bound where both are valid
+REF_MARCH_RAYS_EQUAL = 0.999
+REF_MARCH_ZDT_TOL = 1e-6
+# the synthetic scene's seed: rand_poses puts seed 19's two val cameras
+# within 11.3 and 10.7 degrees of a train camera (seed 0's within 43 and
+# 44: those views see a side of the sphere no train view does, and the val
+# PSNR would measure that, not the trainer)
+REF_SCENE_SEED = 19
+# the reference-exact network at full width on the card (the CLI's defaults
+# without -O: corner 16x2 @ 2^19, sigma 32-64-16, color 31-64-64-3, f32
+# masters, 4096 rays, 512 dense samples), toy widths for the rehearsal;
+# depth is cut in steps only: 200 grid steps (the six 800x800 grid frames
+# of the run and its --test take 11-15 s each and most of the phase)
+REF_SIZES = {
+    "card": {"hw": 800, "grid_iters": 200, "dense_steps": 16, "timed_grid": 16,
+             "timed_dense": 4, "flags": []},
+    "rehearsal": {"hw": 32, "grid_iters": 200, "dense_steps": 8, "timed_grid": 2,
+                  "timed_dense": 1,
+                  "flags": ["--grid_levels", "4", "--grid_hashmap_log2", "12",
+                            "--grid_max_resolution", "64", "--grid_size", "32",
+                            "--num_rays", "256", "--num_steps", "32",
+                            "--max_ray_batch", "1024", "--min_near", "0.05"]},
+}
+
+
+def ref_args(ref, ws, device, *mode):
+    """main_nerf's argv for the synthetic scene under REF_DIR."""
+    return [os.path.join(REF_DIR, "scene"), *mode, "--bound", "1.0", "--scale", "1.0",
+            "--workspace", os.path.join(REF_DIR, ws), "--device", str(device),
+            *ref["flags"]]
+
+
+def ref_trainer(argv):
+    """The Trainer main_nerf builds for an argv, and the scene's val split."""
+    from nerfnav_tpu_torch.cli import flags, main_nerf
+
+    tr, _ = main_nerf.make_trainer(flags.build_parser("chip_smoke").parse_args(argv))
+    return tr, ref_split("val")
+
+
+def ref_split(split):
+    from nerfnav_tpu_torch.data.provider import DatasetOptions, NeRFDataset
+
+    return NeRFDataset(DatasetOptions(path=os.path.join(REF_DIR, "scene"), scale=1.0), split)
+
+
+def timed_steps(tr, ds, n, device):
+    """ms per train step over n warm steps, the fused launches per step, and
+    one profiled step's device idle share."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    arrays = tr._device_arrays(ds)
+    tr.train_step(tr.state, arrays, tr.draw_step(tr.state, 0, ds.H, ds.W))
+    sync(device)
+    before = fm.fused_mlp.launches
+    t0 = time.perf_counter()
+    for i in range(n):
+        tr.train_step(tr.state, arrays, tr.draw_step(tr.state, i % len(ds), ds.H, ds.W))
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    out = {"step_ms": ms, "fused_launches_per_step": (fm.fused_mlp.launches - before) / n}
+    if device.type == "cuda":
+        draws = tr.draw_step(tr.state, 0, ds.H, ds.W)
+        prof = profile_call(lambda: tr.train_step(tr.state, arrays, draws), ms,
+                            "profiled step")
+        out["device_idle_share"] = prof and prof["device_idle_share_of_unprofiled_call"]
+    return out
+
+
+class FrameClock:
+    """Inside the block, times every Trainer.render_full call (between two
+    synchronizations; the callers read the frame back anyway) and counts
+    its fused launches."""
+
+    def __init__(self, device):
+        self.device, self.ms, self.launches = device, [], []
+
+    def __enter__(self):
+        from nerfnav_tpu_torch.ops import fused_mlp as fm
+        from nerfnav_tpu_torch.training.trainer import Trainer
+
+        render_full = self._render_full = Trainer.render_full
+
+        def timed(tr, *a, **k):
+            sync(self.device)
+            before, t0 = fm.fused_mlp.launches, time.perf_counter()
+            out = render_full(tr, *a, **k)
+            sync(self.device)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.launches.append(fm.fused_mlp.launches - before)
+            return out
+
+        Trainer.render_full = timed
+        return self
+
+    def __exit__(self, *exc):
+        from nerfnav_tpu_torch.training.trainer import Trainer
+
+        Trainer.render_full = self._render_full
+
+    def summary(self):
+        return {"frame_ms": self.ms, "fused_launches_per_frame": self.launches}
+
+
+def results_written(ws):
+    """--test's outputs: frames, depth maps, and the video or the log line
+    that says why there is none. Returns whether the video was written."""
+    out = set(os.listdir(os.path.join(REF_DIR, ws, "results")))
+    with open(os.path.join(REF_DIR, ws, "log_ngp.txt")) as f:
+        logged = "no mp4 writer opened" in f.read()
+    check({"ngp_0000.png", "ngp_0000_depth.png", "ngp_0001.png"} <= out,
+          f"{ws}: --test wrote {sorted(out)}")
+    check("ngp.mp4" in out or logged, f"{ws}: no video and no logged reason")
+    return "ngp.mp4" in out
+
+
+def gamma_ladders(tr):
+    """Phase-A candidates per ray of the eval march: the gamma ladder (auto
+    and on the planned span) beside the dt_gamma=0 normalized ladder (auto
+    and occupancy-planned) on the same occupancy."""
+    import dataclasses
+
+    from nerfnav_tpu_torch.ops import marching as tm
+
+    ecfg = tr._eval_march_cfg()
+    span = tr._planned_ladder(tr.occupancy)
+    occ = np.unpackbits(tr.occupancy["bitfield"].cpu().numpy(), axis=-1, bitorder="little")
+    flat = dataclasses.replace(ecfg, dt_gamma=0.0)
+    return {"gamma_auto": len(ecfg.coarse_gamma_ladder[0]), "gamma_planned_span": span,
+            "gamma_planned": len(tr._apply_ladder_plan(ecfg, span).coarse_gamma_ladder[0]),
+            "dt0_auto": tm.full_ladder_steps(flat),
+            "dt0_planned": tm.plan_occupied_ladder(occ, flat)}
+
+
+def crop_march_vs_cpu(tr, ds, ref, device):
+    """The eval march of a 64x64 crop of val view 0 on this device and on
+    the CPU port from the same rays (made on the CPU) and occupancy; then
+    the crop's image rendered on each."""
+    import dataclasses
+
+    from nerfnav_tpu_torch.ops.marching import march
+
+    cpu = torch.device("cpu")
+    tr_cpu, _ = ref_trainer(ref_args(ref, "crop_cpu", cpu, "--cuda_ray", "--ff"))
+    tr_cpu.set_occupancy({k: v.to(cpu) for k, v in tr.occupancy.items()})
+    params_cpu = {k: [t.to(cpu) for t in v] for k, v in tr.state.ema_params.items()}
+    intr = crop_intrinsics(ds)
+    ms = []
+    with torch.no_grad():
+        ro, rd, _ = tr_cpu._frame_rays(ds.poses[0], intr, 64, 64, 4096, None)
+        for t in (tr, tr_cpu):
+            occ = t.occupancy
+            mcfg = t._apply_ladder_plan(t._eval_march_cfg(), t._planned_ladder(occ))
+            bm = t._frame_beam(intr, 64, 64, rd)
+            if bm > 1:
+                mcfg, occ = dataclasses.replace(mcfg, beam=bm), t._beamed_occupancy(occ)
+            m = march(ro.to(t.device), rd.to(t.device), occ, mcfg)
+            ms.append({k: v.cpu() for k, v in m.items()})
+    md, mc = ms
+    same = (md["valid"] == mc["valid"]).all(dim=1)
+    both = mc["valid"] & same[:, None]
+    zdt = max(float((md[k] - mc[k])[both].abs().max()) if both.any() else 0.0
+              for k in ("z", "dt"))
+    img_d, _ = tr.render_full(tr.state.ema_params, ds.poses[0], intr, 64, 64)
+    img_c, _ = tr_cpu.render_full(params_cpu, ds.poses[0], intr, 64, 64)
+    res = {"rays": int(same.numel()), "rays_valid_differ": int((~same).sum()),
+           "valid_samples": int(mc["valid"].sum()), "z_dt_max_abs": zdt,
+           "image_mean_abs": float((img_d.cpu() - img_c).abs().mean()),
+           "gamma_span": mcfg.gamma_span, "beam": mcfg.beam}
+    log("gamma march of a 64x64 crop, this device vs the CPU port:", json.dumps(res))
+    check(res["valid_samples"] > 0, "the crop's march kept no sample")
+    check(float(same.float().mean()) >= REF_MARCH_RAYS_EQUAL,
+          f"{res['rays_valid_differ']} rays' valid rows differ")
+    check(zdt <= REF_MARCH_ZDT_TOL, f"z/dt {zdt} apart where both are valid")
+    check(res["image_mean_abs"] <= 5e-3, f"crop image mean |diff| {res['image_mean_abs']}")
+
+
+def dense_step_vs_cpu(ref, device):
+    """One dense train step of the reference network at 256 rays with xla
+    fp32 MLPs, this device against the CPU port from the same params (the
+    seed's), targets, draws and rays. The rays are made on the CPU for both: a ray
+    one float32 step off (the card's 3x3 matmul in get_rays) moves the fine
+    hash levels' table gradients by 1e-3 to 7e-3 relative (measured on the
+    CPU), because a trilinear weight moves by the level's resolution times
+    the shift."""
+    from nerfnav_tpu_torch.training import trainer as trainer_mod
+
+    cpu = torch.device("cpu")
+    argv = ("--num_rays", "256", "--ckpt", "scratch")
+    tr_c, _ = ref_trainer(ref_args(ref, "step_cpu", cpu, *argv))
+    tr_d, _ = ref_trainer(ref_args(ref, "step_dev", device, *argv))
+    ds = ref_split("train")
+    draws = tr_c.draw_step(tr_c.state, 1, ds.H, ds.W)
+    to = lambda t: None if t is None else t.to(device)  # noqa: E731
+    draws_d = draws._replace(rays=draws.rays._replace(inds=to(draws.rays.inds)),
+                             bg=to(draws.bg), jitter=to(draws.jitter), u=to(draws.u))
+    want = tr_c.loss_and_grads(tr_c.state, tr_c._device_arrays(ds), draws)
+    get_rays = trainer_mod.get_rays
+
+    def cpu_rays(pose, intrinsics, H, W, d, error_map=None):
+        r = get_rays(pose.cpu(), intrinsics.cpu(), H, W, draws.rays, None)
+        return {k: v.to(pose.device) for k, v in r.items()}
+
+    trainer_mod.get_rays = cpu_rays
+    try:
+        got = tr_d.loss_and_grads(tr_d.state, tr_d._device_arrays(ds), draws_d)
+    finally:
+        trainer_mod.get_rays = get_rays
+    loss_rel = abs(float(got.loss) - float(want.loss)) / abs(float(want.loss))
+    errs = [rel_l2(a.cpu(), b) for a, b in zip(got.grads, want.grads)]
+    rel_max = [float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(got.grads, want.grads)]
+    log("one dense step at 256 rays (reference network, xla fp32 MLPs), this device vs "
+        "the CPU port:", json.dumps({"loss_rel": loss_rel, "grad_rel_l2_max": max(errs),
+                                     "grad_rel_l2": errs, "grad_rel_to_max_entry": rel_max,
+                                     "grad_norms": [float(b.norm()) for b in want.grads],
+                                     "samples_per_ray": tr_c.rcfg.num_steps}))
+    check(loss_rel <= 1e-5, f"dense loss {loss_rel} away from the CPU port's")
+    check(max(errs) <= 1e-4, f"dense gradients {max(errs)} away from the CPU port's (L2)")
+
+
+def faces_points(bound, resolutions, n, seed=0):
+    """n float32 points on, and one float32 step either side of, the cell
+    faces of the resolutions' lattices over [-bound, bound]."""
+    rng = np.random.default_rng(seed)
+    r = np.asarray(resolutions)[rng.integers(0, len(resolutions), (n, 1))]
+    x = (rng.integers(0, r + 1, (n, 3)) / r * 2.0 * bound - bound).astype(np.float32)
+    step = rng.integers(-1, 2, (n, 3))
+    x = np.where(step > 0, np.nextafter(x, np.float32(np.inf)),
+                 np.where(step < 0, np.nextafter(x, np.float32(-np.inf)), x))
+    return np.clip(x, -bound, bound).astype(np.float32)
+
+
+def encode_bound_check(device, bound=1.5, n=2**16):
+    """The reference-exact hash grid at a bound that is not a power of two,
+    this device against the CPU port on points next to cell faces: the cell
+    of every point at every level equal, the features within 1e-6."""
+    from nerfnav_tpu_torch.ops.hashgrid import HashGridConfig, hash_grid_encode, unit_coords
+
+    cfg = HashGridConfig(desired_resolution=int(2048 * bound))
+    gen = torch.Generator().manual_seed(2)
+    tables = [torch.rand((s, cfg.row_dim), generator=gen) * 2 - 1 for s in cfg.level_sizes]
+    x = torch.as_tensor(faces_points(bound, cfg.resolutions, n))
+    cells, feats = [], []
+    with torch.no_grad():
+        for dev in (torch.device("cpu"), device):
+            x01 = unit_coords(x.to(dev), bound)
+            cells.append(torch.stack([torch.floor(x01 * r) for r in cfg.resolutions]).cpu())
+            feats.append(hash_grid_encode([t.to(dev) for t in tables], x.to(dev), cfg,
+                                          bound=bound).cpu())
+    differ = int((cells[0] != cells[1]).any(dim=-1).sum())
+    err = float((feats[0] - feats[1]).abs().max())
+    log(f"hash grid at bound {bound}, {n} points next to cell faces, this device vs the "
+        f"CPU port: point-levels in another cell {differ}, features max |diff| {err:.3g}")
+    check(differ == 0, f"{differ} point-levels fall in another cell than on the CPU")
+    check(err <= 1e-6, f"features {err} away from the CPU port's")
+
+
+def reference_phase(device, sizes, card):
+    """The reference-exact configuration through main_nerf on a synthetic
+    scene (see the module docstring). Returns the fused launches per step
+    and per frame of both paths."""
+    from nerfnav_tpu_torch.cli import main_nerf
+    from nerfnav_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    ref = sizes["ref"]
+    hw = ref["hw"]
+    shutil.rmtree(REF_DIR, ignore_errors=True)
+    phase_t0 = t0 = time.perf_counter()
+    make_synthetic_scene(os.path.join(REF_DIR, "scene"), n_train=8, n_val=2, H=hw, W=hw,
+                         seed=REF_SCENE_SEED, device=device)
+    sync(device)
+    log(f"reference phase: scene of 8 + 2 views at {hw}x{hw} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    encode_bound_check(device)
+    train_ds = ref_split("train")
+
+    # the grid run: --cuda_ray --ff at the default dt_gamma 1/128, from the
+    # untrained field's val PSNR, then --test
+    grid = ref_args(ref, "grid", device, "--cuda_ray", "--ff", "--iters",
+                    str(ref["grid_iters"]))
+    tr0, val = ref_trainer(ref_args(ref, "untrained", device, "--cuda_ray", "--ff"))
+    psnr0 = tr0.evaluate(val)
+    del tr0
+    fm.fused_mlp.launches = 0
+    t0 = time.perf_counter()
+    tr = main_nerf.main(grid)
+    sync(device)
+    grid_s, grid_launches = time.perf_counter() - t0, fm.fused_mlp.launches
+    psnr = tr.stats["results"][-1]
+    log("reference grid run:", json.dumps({
+        "card": card, "steps": tr.global_step, "run_s": grid_s, "val_psnr_untrained": psnr0,
+        "val_psnr": psnr, "loss_per_epoch": tr.stats["loss"], "fused_launches": grid_launches,
+        "dt_gamma": tr.march_cfg.dt_gamma,
+        "grid": [tr.cfg.grid_levels, tr.cfg.grid_level_dim, tr.cfg.grid_log2_hashmap_size,
+                 tr.cfg.grid_layout]}))
+    check(psnr >= psnr0 + REF_PSNR_GAIN,
+          f"val PSNR {psnr:.3f} is not {REF_PSNR_GAIN} dB over the untrained {psnr0:.3f}")
+    if device.type == "cuda":
+        check(grid_launches > 0, "the grid run never launched the fused-MLP kernel")
+    log("phase-A candidates per ray:", json.dumps(gamma_ladders(tr)))
+    crop_march_vs_cpu(tr, val, ref, device)
+    t0 = time.perf_counter()
+    with FrameClock(device) as frames:
+        tt = main_nerf.main(grid + ["--test"])
+    log(f"grid --test: {time.perf_counter() - t0:.1f} s, val PSNR "
+        f"{tt.stats['results'][-1]:.4f}, video written {results_written('grid')}")
+    check(abs(tt.stats["results"][-1] - psnr) <= 1e-3, "--test's PSNR is not the run's")
+    grid_t = {"card": card, **timed_steps(tr, train_ds, ref["timed_grid"], device),
+              **frames.summary()}
+    log("reference grid timing (the frames are --test's):", json.dumps(grid_t))
+    del tr, tt
+
+    # the dense run: --ff without an occupancy grid, 512 samples a ray; a few
+    # steps through the CLI's Trainer, then --test
+    # the loss is read on one fixed batch (pixels, backgrounds, jitter)
+    # before and after: a step's own loss swings with its random backgrounds
+    dense = ref_args(ref, "dense", device, "--ff")
+    tr, _ = ref_trainer(dense)
+    arrays = tr._device_arrays(train_ds)
+    probe = tr.draw_step(tr.state, 0, train_ds.H, train_ds.W)
+    loss0 = float(tr.loss_and_grads(tr.state, arrays, probe).loss)
+    fm.fused_mlp.launches = 0
+    t0 = time.perf_counter()
+    tr.train(train_ds, max_epochs=1, steps_per_epoch=ref["dense_steps"])
+    sync(device)
+    dense_s, dense_launches = time.perf_counter() - t0, fm.fused_mlp.launches
+    loss1 = float(tr.loss_and_grads(tr.state, arrays, probe).loss)
+    del arrays
+    log("reference dense run:", json.dumps({
+        "card": card, "steps": tr.global_step, "run_s": dense_s,
+        "fixed_batch_loss_before_after": [loss0, loss1], "loss_per_epoch": tr.stats["loss"],
+        "fused_launches": dense_launches, "samples_per_ray": tr.rcfg.num_steps}))
+    check(math.isfinite(loss1) and loss1 < loss0, "the dense loss did not fall")
+    if device.type == "cuda":
+        check(dense_launches > 0, "the dense run never launched the fused-MLP kernel")
+    dense_step_vs_cpu(ref, device)
+    t0 = time.perf_counter()
+    with FrameClock(device) as frames:
+        tt = main_nerf.main(dense + ["--test"])
+    log(f"dense --test: {time.perf_counter() - t0:.1f} s, val PSNR "
+        f"{tt.stats['results'][-1]:.4f}, video written {results_written('dense')}")
+    dense_t = {"card": card, **timed_steps(tr, train_ds, ref["timed_dense"], device),
+               **frames.summary()}
+    log("reference dense timing (the frames are --test's):", json.dumps(dense_t))
+    shutil.rmtree(REF_DIR, ignore_errors=True)
+    log(f"reference phase: {time.perf_counter() - phase_t0:.1f} s")
+    return {"ref_grid_launches_per_step": grid_t["fused_launches_per_step"],
+            "ref_grid_launches_per_frame": grid_t["fused_launches_per_frame"],
+            "ref_dense_launches_per_step": dense_t["fused_launches_per_step"],
+            "ref_dense_launches_per_frame": dense_t["fused_launches_per_frame"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1318,13 +1703,15 @@ def main():
     if args.cpu_rehearsal:
         device = torch.device("cpu")
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
-                 "rays": 512, "nav": NAV_SIZES["rehearsal"]}
+                 "rays": 512, "nav": NAV_SIZES["rehearsal"], "ref": REF_SIZES["rehearsal"],
+                 "dense_n": 256 * 32}
     else:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
         device = torch.device("cuda")
         sizes = {"hw": 800, "grid": 128, "log2": 17, "frames": 3, "mlp_n": 32768,
-                 "rays": 4096, "nav": NAV_SIZES["card"]}
+                 "rays": 4096, "nav": NAV_SIZES["card"], "ref": REF_SIZES["card"],
+                 "dense_n": 4096 * 512}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
@@ -1342,12 +1729,13 @@ def main():
         for name, out in kernels.build_all().items():
             log(f"built {name} ({time.perf_counter() - t0:.1f} s):\n{out.strip()}")
     timer = Timer(device)
-    mlp = kernel_phase(device, sizes["mlp_n"], timer)
+    mlp = kernel_phase(device, sizes["mlp_n"], sizes["dense_n"], timer)
     if args.kernels_only:
         return
     launches = slice_phase(device, sizes, card)
     train_launches = training_phase(device, sizes, card)
     nav_launches = nav_phase(device, sizes, card)
+    ref_launches = reference_phase(device, sizes, card)
     entry = {"name": "fused_mlp", "route": "cuda",
              "source": "nerfnav_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "nerfnav_tpu/ops/fused_mlp.py:58",
@@ -1355,7 +1743,7 @@ def main():
              "ms": mlp["ms"], "plain_ms": mlp["plain_ms"],
              "bound_ms": mlp["bound_ms"], "bound_by": mlp["bound_by"],
              "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches,
-             "nav_launches": nav_launches}
+             "nav_launches": nav_launches, **ref_launches}
     log(json.dumps({"kernels": [entry]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)

@@ -1,17 +1,22 @@
-"""Analytic fields: closed-form density and color closures as a `Field`.
+"""Analytic fields, and synthetic datasets rendered from them.
 
-Counterpart of the field builders of nerfnav_tpu/data/synthetic.py
-(`sphere_field`, `cylinder_field`, `textured_sphere_field`,
-`cluttered_field`): the `--analytic` nav scene and the tests' fields, with no
-trained model. Each closure runs on the device of its input. Writing a
-synthetic dataset to disk (`make_synthetic_scene`) needs data/provider.py,
-ROADMAP A11.
+Counterpart of nerfnav_tpu/data/synthetic.py (`sphere_field`,
+`cylinder_field`, `textured_sphere_field`, `cluttered_field`,
+`make_synthetic_scene`): the `--analytic` nav scene, the tests' fields and a
+blender-layout transforms.json scene on disk, with no trained model and no
+download. Each closure runs on the device of its input.
 """
 
+import json
+import os
+
+import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import device_const
-from nerfnav_tpu_torch.models.renderer import Field
+from nerfnav_tpu_torch.data.provider import ngp_to_nerf_matrix, rand_poses, write_image
+from nerfnav_tpu_torch.data.rays import get_all_rays
+from nerfnav_tpu_torch.device import device_const, resolve_device
+from nerfnav_tpu_torch.models.renderer import Field, RenderConfig, render_rays
 
 
 def _norm(x):
@@ -96,3 +101,54 @@ def cluttered_field(sigma=300.0, bound=1.0):
         return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 1.0)
 
     return Field(density_fn=density_fn, color_fn=color_fn, bound=bound)
+
+
+def make_synthetic_scene(out_dir: str, field: Field = None, n_train: int = 12,
+                         n_val: int = 2, H: int = 64, W: int = 64, fov_x: float = 0.9,
+                         radius: float = 1.8, seed: int = 0, num_steps: int = 128,
+                         device="cuda"):
+    """Write a blender-layout dataset (transforms_{train,val}.json and RGBA
+    PNGs) rendered from `field` (default: sphere_field) by the dense
+    render_rays on `device`, in chunks of at most 65,536 rays. Poses are
+    drawn with rand_poses on an orbit of `radius` and stored in the OpenGL
+    convention at scale 1, so the provider reads them back exactly
+    (reference synthetic.py:118-188)."""
+    field = field or sphere_field()
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    fx = W / (2 * np.tan(fov_x / 2))
+    intr = torch.tensor([fx, fx, W / 2, H / 2], dtype=torch.float32, device=dev)
+    rcfg = RenderConfig(num_steps=num_steps, upsample_steps=0, min_near=0.05)
+    os.makedirs(out_dir, exist_ok=True)
+    n_r = H * W
+    chunk = min(n_r, 65536)
+    pad = (-n_r) % chunk
+
+    @torch.no_grad()
+    def render_frame(pose):
+        rays = get_all_rays(torch.as_tensor(pose, device=dev), intr, H, W)
+        ro = torch.cat([rays["rays_o"], torch.zeros((pad, 3), device=dev)])
+        rd = torch.cat([rays["rays_d"], torch.ones((pad, 3), device=dev)])
+        imgs, ws = [], []
+        for s in range(0, n_r + pad, chunk):
+            out = render_rays(field, rcfg, ro[s:s + chunk], rd[s:s + chunk], bg_color=0.0)
+            imgs.append(out["image"])
+            ws.append(out["weights_sum"])
+        return (torch.cat(imgs)[:n_r].reshape(H, W, 3).cpu().numpy(),
+                torch.cat(ws)[:n_r].reshape(H, W, 1).cpu().numpy())
+
+    for split, n in (("train", n_train), ("val", n_val)):
+        frames = []
+        for i, pose in enumerate(rand_poses(rng, n, radius=radius)):
+            rgb, alpha = render_frame(pose)
+            # un-premultiplied, so the provider's alpha compositing gives rgb
+            rgba = np.concatenate([np.divide(rgb, np.maximum(alpha, 1e-4)), alpha], -1)
+            fname = f"{split}_{i:03d}.png"
+            write_image(os.path.join(out_dir, fname),
+                        (np.clip(rgba, 0, 1) * 255).astype(np.uint8))
+            frames.append({"file_path": fname,
+                           "transform_matrix": ngp_to_nerf_matrix(pose, 1.0).tolist()})
+        meta = {"camera_angle_x": float(fov_x), "frames": frames, "h": H, "w": W}
+        with open(os.path.join(out_dir, f"transforms_{split}.json"), "w") as f:
+            json.dump(meta, f)
+    return out_dir

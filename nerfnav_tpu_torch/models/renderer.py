@@ -182,17 +182,21 @@ def render_rays(field: Field, rcfg: RenderConfig, rays_o, rays_d, jitter=None, u
     jitter: (N, num_steps) uniform draws that perturb each sample by
     (jitter - 0.5) sample spacings (the reference's perturb), or None;
     u: (N, upsample_steps) draws for sample_pdf, or None for its midpoints.
-    bg_color: scalar, (3,) or (N, 3). Returns {"image" (N, 3), "depth",
-    "weights_sum" (N,)}, differentiable w.r.t. the field and the rays in
-    both modes."""
-    if crop_aabb is not None:
-        raise unported("render_rays with crop_aabb", "A6")
+    bg_color: scalar, (3,) or (N, 3); crop_aabb: a (6,) tensor that narrows
+    [near, far], or None. Returns {"image" (N, 3), "depth", "weights_sum"
+    (N,)}, differentiable w.r.t. the field and the rays in both modes."""
     n = rays_o.shape[0]
     aabb = aabb_of(field.bound, rays_o.device)
     near, far = near_far_from_aabb(rays_o, rays_d, aabb, rcfg.min_near)
+    if crop_aabb is not None:  # reference renderer.py:196-199
+        from nerfnav_tpu_torch.ops.marching import crop_near_far
+
+        near, far = crop_near_far(near, far, rays_o, rays_d, crop_aabb)
     t = rcfg.num_steps
     z_vals = near[:, None] + (far - near)[:, None] * linspace(0.0, 1.0, t, rays_o.device)
-    sample_dist = (far - near) / t
+    # a tensor divisor, so the card's jitter lands where the CPU's does (CUDA
+    # divides by a Python scalar as a multiply by its reciprocal)
+    sample_dist = (far - near) / device_const(float(t), rays_o.device)
     if jitter is not None:
         z_vals = z_vals + (jitter - 0.5) * sample_dist[:, None]
 

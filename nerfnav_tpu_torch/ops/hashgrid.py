@@ -23,7 +23,7 @@ import math
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import resolve_device
+from nerfnav_tpu_torch.device import device_const, resolve_device
 
 # Spatial hash primes (reference gridencoder.cu:36-51).
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
@@ -163,6 +163,16 @@ def _corner_bits(d: int) -> np.ndarray:
     ).astype(np.float32)
 
 
+def unit_coords(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """(x + bound) / (2 bound) in float32, the same bits on every device.
+
+    The divisor is a tensor on x's device: CUDA divides by a Python scalar as
+    a multiply by its reciprocal, which can end a bit off the CPU's quotient
+    and so move a point next to a cell face into the next cell at a bound
+    that is not a power of two."""
+    return (x.float() + bound) / device_const(2.0 * bound, x.device)
+
+
 def hash_grid_encode(table, x: torch.Tensor, config: HashGridConfig,
                      bound: float = 1.0) -> torch.Tensor:
     """table: list of per-level (size_l, row_dim) tables; x: (N, D) in
@@ -171,7 +181,7 @@ def hash_grid_encode(table, x: torch.Tensor, config: HashGridConfig,
     n = x.shape[0]
     d = config.input_dim
     num_corners = 2**d
-    x01 = (x.float() + bound) / (2.0 * bound)
+    x01 = unit_coords(x, bound)
     in_bounds = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1)
     # maximum/minimum, not clamp: like jnp.clip they pass half the gradient
     # at a point exactly on the boundary

@@ -2,21 +2,23 @@
 
 Counterpart of nerfnav_tpu/ops/marching.py, restricted to the branches the
 eval render and the train step run: `march_rays_block` with the uniform
-(dt_gamma == 0) phase-A ladder, normalized (eval) or fixed (training),
-beam-shared phase A (MarchConfig.beam > 1) and the exact phase B, without or
-with a march key (random start, stratified or per-ray-hash stride phase).
+(dt_gamma == 0) phase-A ladder, normalized (eval) or fixed (training), or the
+static gamma ladder (dt_gamma > 0), beam-shared phase A (MarchConfig.beam > 1)
+and the exact phase B, without or with a march key (random start, stratified
+or per-ray-hash stride phase), optionally inside a crop AABB.
 
 Phase A walks a per-ray ladder of coarse segments against the block-packed
 coarse occupancy table and keeps the first K_A occupied segments; phase B
-subdivides them at dt_min against the fine block table and keeps the first
-K occupied samples. Outputs (z, dt, valid), each (N, K), match the reference
-exactly: valid bit for bit, z/dt to float32 rounding.
+subdivides them at dt_min (under dt_gamma, at each segment's own step)
+against the fine block table and keeps the first K occupied samples. Outputs
+(z, dt, valid), each (N, K), match the reference exactly: valid bit for bit,
+z/dt to float32 rounding.
 
 JAX draws a march's randomness from its key; here it is a `MarchKey` of
 tensors (`draw_march_key` draws one from a torch.Generator), so a test can
-inject the JAX draws. The other marchers (byte bitfields), dt_gamma > 0, the
-phase-A0 prefilter, first-K and proxy termination, crops and depth windows
-raise NotImplementedError (ROADMAP A6). Its CUDA kernel is ROADMAP B2.
+inject the JAX draws. The other marchers (byte bitfields), the phase-A0
+prefilter, first-K and proxy termination and depth windows raise
+NotImplementedError (ROADMAP A6). Its CUDA kernel is ROADMAP B2.
 """
 
 from dataclasses import dataclass, replace
@@ -27,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import unported
+from nerfnav_tpu_torch.device import device_const, unported
 from nerfnav_tpu_torch.ops.morton import (
     block_bit_lookup, block_size_of, pack_blocks, unpack_blocks,
 )
@@ -163,8 +165,10 @@ def mip_level(pos, dt, cfg: MarchConfig):
     for i in range(cfg.cascades - 1):
         c_pos = c_pos + (mx > float(2**i)).long()
     if isinstance(dt, (float, int, np.ndarray)):
-        c_dt = torch.as_tensor(_mip_from_dt_static(dt, cfg.grid_size),
-                               device=pos.device)
+        # a cached device constant: a fresh host-to-device copy would wait
+        # for the card's queue in every march
+        c_dt = device_const(_mip_from_dt_static(dt, cfg.grid_size).tolist(),
+                            pos.device).long()
     else:
         c_dt = torch.ceil(torch.log2(
             torch.clamp(dt * cfg.grid_size * 0.5, min=1e-9))).clamp(min=0).long()
@@ -194,16 +198,32 @@ def beam_contract_violation(rays_d, cfg: MarchConfig, n_check: int = 4096) -> fl
     return sin_max * z_max / cell
 
 
+def _inv_dir(rays_d):
+    return 1.0 / torch.where(rays_d.abs() < 1e-9, torch.full_like(rays_d, 1e-9), rays_d)
+
+
+def crop_near_far(near, far, rays_o, rays_d, crop_aabb):
+    """Narrow [near, far] to a crop AABB (6,) tensor [xmin, ymin, zmin, xmax,
+    ymax, zmax]; a ray that misses it gets far == near (reference
+    marching.py:352-363)."""
+    inv_d = _inv_dir(rays_d)
+    c0 = (crop_aabb[:3] - rays_o) * inv_d
+    c1 = (crop_aabb[3:] - rays_o) * inv_d
+    near = torch.maximum(near, torch.minimum(c0, c1).amax(dim=-1))
+    far = torch.maximum(torch.minimum(far, torch.maximum(c0, c1).amin(dim=-1)), near)
+    return near, far
+
+
 def near_far_aabb(rays_o, rays_d, bound: float, min_near: float, crop_aabb=None):
-    """Slab-test near/far against the bound cube."""
-    if crop_aabb is not None:
-        raise unported("crop_aabb", "A6")
-    d = torch.where(rays_d.abs() < 1e-9, torch.full_like(rays_d, 1e-9), rays_d)
-    inv_d = 1.0 / d
+    """Slab-test near/far against the bound cube, intersected with the crop
+    AABB when one is given."""
+    inv_d = _inv_dir(rays_d)
     t0 = (-bound - rays_o) * inv_d
     t1 = (bound - rays_o) * inv_d
     near = torch.clamp(torch.minimum(t0, t1).amax(dim=-1), min=min_near)
     far = torch.maximum(torch.maximum(t0, t1).amin(dim=-1), near)
+    if crop_aabb is not None:
+        near, far = crop_near_far(near, far, rays_o, rays_d, crop_aabb)
     return near, far
 
 
@@ -255,7 +275,10 @@ def _phase_a_ladder(near, far, cfg: MarchConfig, round_to: int = 1):
     cap = _phase_a_cap(cfg)
     t_a0 = cfg.t_a0_steps or int(np.ceil(span / cap))
     t_a = t_a0 + (-t_a0) % round_to
-    dt_a = torch.clamp((far - near)[:, None] / t_a0, base, cap)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its reciprocal (see hashgrid.hash_grid_encode)
+    dt_a = torch.clamp((far - near)[:, None] / device_const(float(t_a0), near.device),
+                       base, cap)
     taus = torch.arange(t_a, dtype=torch.float32, device=near.device)
     return near[:, None] + taus[None, :] * dt_a, dt_a, t_a
 
@@ -321,12 +344,7 @@ def plan_occupied_ladder(occ_grids, cfg: MarchConfig, pad_cells: int = 1):
     aabb, _ = plan_occupied_crop(occ_grids, cfg, pad_cells)
     if aabb is None:
         return 0
-    lo, hi = aabb[:3], aabb[3:]
-    b = cfg.bound
-    cube = np.array([[x, y, z] for x in (-b, b) for y in (-b, b) for z in (-b, b)])
-    ac = np.array([[p[0], q[1], r[2]] for p in (lo, hi) for q in (lo, hi)
-                   for r in (lo, hi)])
-    span = float(np.sqrt(((cube[:, None, :] - ac[None, :, :]) ** 2).sum(-1).max()))
+    span = _occupied_span(aabb, cfg.bound)
     cap = _phase_a_cap(cfg) if cfg.coarse_normalized else (
         cfg.dt_min * cfg.coarse_step_mult)
     auto = int(np.ceil(2.0 * _SQRT3 * max(cfg.bound, 1.0) / cap))
@@ -335,6 +353,31 @@ def plan_occupied_ladder(occ_grids, cfg: MarchConfig, pad_cells: int = 1):
     if -(-t_a0 // g_a) < 8:
         t_a0 = 8 * g_a
     return min(t_a0, auto)
+
+
+def _occupied_span(aabb, bound: float) -> float:
+    """Largest distance from a corner of the bound cube to a corner of the
+    occupied AABB: a bound on any ray's cube entry -> AABB exit span."""
+    lo, hi = aabb[:3], aabb[3:]
+    b = bound
+    cube = np.array([[x, y, z] for x in (-b, b) for y in (-b, b) for z in (-b, b)])
+    ac = np.array([[p[0], q[1], r[2]] for p in (lo, hi) for q in (lo, hi)
+                   for r in (lo, hi)])
+    return float(np.sqrt(((cube[:, None, :] - ac[None, :, :]) ** 2).sum(-1).max()))
+
+
+def plan_gamma_span(occ_grids, cfg: MarchConfig, pad_cells: int = 1) -> float:
+    """The static gamma ladder's span (MarchConfig.gamma_span) bounded by the
+    occupied geometry, plus one dt_min of start jitter and one top-cascade
+    coarse step; 0.0 when nothing is occupied (reference marching.py:736-765)."""
+    aabb, _ = plan_occupied_crop(occ_grids, cfg, pad_cells)
+    full = 2.0 * _SQRT3 * max(cfg.bound, 1.0)
+    if aabb is None:
+        return 0.0
+    span = _occupied_span(aabb, cfg.bound)
+    hc = cfg.grid_size // cfg.coarse_factor
+    cap = 0.95 * 2.0 * min(2.0 ** (cfg.cascades - 1), cfg.bound) / hc
+    return float(min(span + cfg.dt_min + cap, full))
 
 
 def _with_grid_size(cfg: MarchConfig, grid_size: int) -> MarchConfig:
@@ -397,10 +440,7 @@ def dilate_blocks_coarse(blocks_coarse, hc: int, bc: int):
     return pack_blocks(g.reshape(casc, -1), hc, block=bc)
 
 
-def _check_block_options(cfg: MarchConfig, crop_aabb, z_window, stop_after,
-                         phase_a):
-    if cfg.dt_gamma > 0.0:
-        raise unported("dt_gamma > 0 (static gamma ladder)", "A6")
+def _check_block_options(cfg: MarchConfig, z_window, stop_after, phase_a):
     if cfg.a0_segments > 0 and cfg.coarse_normalized:
         raise unported("a0_segments (phase-A0 prefilter)", "A6")
     if cfg.proxy_terminate:
@@ -409,8 +449,6 @@ def _check_block_options(cfg: MarchConfig, crop_aabb, z_window, stop_after,
         raise unported("first_k compaction", "A6")
     if cfg.coarse_first_k:
         raise unported("coarse_first_k compaction", "A6")
-    if crop_aabb is not None:
-        raise unported("crop_aabb", "A6")
     if z_window is not None:
         raise unported("z_window", "A6")
     if stop_after or phase_a is not None:
@@ -424,9 +462,17 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
     """Two-phase march against block-packed occupancy rows.
 
     blocks: (cascades, (H/4)^3, 2) int64 words; blocks_coarse: (cascades,
-    (H/cf/bc)^3, bc^3/32) int64 words; key: a MarchKey or None. Returns
-    {"z", "dt", "valid", "near", "far"} with (N, K) samples."""
-    _check_block_options(cfg, crop_aabb, z_window, stop_after, phase_a)
+    (H/cf/bc)^3, bc^3/32) int64 words; key: a MarchKey or None; crop_aabb: a
+    (6,) tensor or None. Returns {"z", "dt", "valid", "near", "far"} with
+    (N, K) samples.
+
+    dt_gamma > 0: phase A walks MarchConfig.coarse_gamma_ladder, a static
+    ladder whose step grows with the distance from the cube entry, and
+    phase B subdivides each kept segment by its own step, so the fine test's
+    cascade follows that step (reference marching.py:1063-1082, 1164-1199,
+    1359-1364)."""
+    _check_block_options(cfg, z_window, stop_after, phase_a)
+    gamma = cfg.dt_gamma > 0.0
     n = rays_o.shape[0]
     h = cfg.grid_size
     hc = h // cfg.coarse_factor
@@ -435,7 +481,13 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
     mult = cfg.coarse_step_mult
     base = dt * mult
     c0 = min(1.0, cfg.bound)
-    dt_a_max = _phase_a_cap(cfg) if cfg.coarse_normalized else base
+    # the largest phase-A step any ray takes sizes the anchor runs and the
+    # fine runs
+    if gamma:
+        taus_np, dtcs_np = cfg.coarse_gamma_ladder
+        dt_a_max = float(dtcs_np.max())
+    else:
+        dt_a_max = _phase_a_cap(cfg) if cfg.coarse_normalized else base
 
     # run lengths: a phase-A run spans about one coarse block (1.5x looser on
     # normalized ladders), split into >= 8 runs (the ladder-shape rule)
@@ -445,6 +497,8 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
     g_a = max(1, min(int(slack * sb_world / dt_a_max), 32))
     if cfg.phase_a_group > 0:
         g_a = cfg.phase_a_group
+    elif gamma:
+        g_a = max(1, min(g_a, -(-len(taus_np) // 8)))
     elif cfg.coarse_normalized:
         span = 2.0 * _SQRT3 * max(cfg.bound, 1.0)
         t_a0_est = cfg.t_a0_steps or int(np.ceil(span / dt_a_max))
@@ -454,7 +508,7 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
         if mult % d == 0 and (d - 1) * (dt_a_max / mult) < fb_world:
             g_b = d
 
-    near, far = near_far_aabb(rays_o, rays_d, cfg.bound, cfg.min_near)
+    near, far = near_far_aabb(rays_o, rays_d, cfg.bound, cfg.min_near, crop_aabb)
     if key is not None:
         near = near + key.u * dt
     k_a = cfg.coarse_segments
@@ -476,8 +530,22 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
         tbl_coarse = blocks_coarse_dilated.reshape(-1, blocks_coarse.shape[-1])
 
     # ---- phase A: coarse segments
-    z_a, dt_a, _ = _phase_a_ladder(nearA, farA, cfg, round_to=g_a)
     anchors_a = [0, g_a - 1] if (cfg.coarse_anchors == 2 and g_a > 1) else None
+    if gamma:
+        # the static ladder, padded to whole anchor runs with far-masked tail
+        # steps at its last step; its steps are small device rows that the
+        # kept indices select from (the reference's unrolled compare-and-
+        # select gives the same values)
+        pad = (-len(taus_np)) % g_a
+        if pad:
+            taus_np = np.concatenate(
+                [taus_np, taus_np[-1] + dtcs_np[-1] * np.arange(1, pad + 1, dtype=np.float32)])
+            dtcs_np = np.concatenate([dtcs_np, np.full(pad, dtcs_np[-1], np.float32)])
+        taus = device_const(taus_np.tolist(), rays_o.device)
+        z_a = nearA[:, None] + taus[None, :]
+        dt_a = dtcs_np
+    else:
+        z_a, dt_a, _ = _phase_a_ladder(nearA, farA, cfg, round_to=g_a)
     pos_a = oA[:, None, :] + dA[:, None, :] * z_a[..., None]
     flat_a, local_a = _block_coords(pos_a, dt_a, hc, cfg, block=bc)
     occ_a = _grouped_block_test(tbl_coarse, flat_a, local_a, g_a, anchors=anchors_a)
@@ -485,19 +553,26 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
     occ_next = torch.cat([occ_a[:, 1:], torch.zeros_like(occ_a[:, :1])], dim=1)
     occ_a = (occ_a | occ_next) & (z_a < farA[:, None])
     idx_a, valid_a, stride_a = _compact_idx(occ_a, k_a)
-    za_buf = torch.where(valid_a, nearA[:, None] + idx_a * dt_a, 0.0)
-    dta_buf = torch.where(valid_a, dt_a * stride_a.float(), 0.0)
+    if gamma:
+        dtcs = device_const(dtcs_np.tolist(), rays_o.device)
+        za_buf = torch.where(valid_a, nearA[:, None] + taus[idx_a], 0.0)
+        dta_buf = torch.where(valid_a, dtcs[idx_a] * stride_a.float(), 0.0)
+    else:
+        za_buf = torch.where(valid_a, nearA[:, None] + idx_a * dt_a, 0.0)
+        dta_buf = torch.where(valid_a, dt_a * stride_a.float(), 0.0)
     if mB > 1:
         za_buf = za_buf.repeat_interleave(mB, dim=0)
         dta_buf = dta_buf.repeat_interleave(mB, dim=0)
         valid_a = valid_a.repeat_interleave(mB, dim=0)
 
     # ---- phase B: fine subdivision of each kept segment
-    sub = dta_buf[:, :, None] / mult
+    sub = dta_buf[:, :, None] / device_const(float(mult), rays_o.device)
     offs = torch.arange(mult, dtype=torch.float32, device=rays_o.device)
     z_b = (za_buf[:, :, None] + offs[None, None, :] * sub).reshape(n, -1)
     pos_b = rays_o[:, None, :] + rays_d[:, None, :] * z_b[..., None]
-    flat_b, local_b = _block_coords(pos_b, dt, h, cfg)
+    # under dt_gamma the fine test's cascade follows each segment's own step
+    dt_b = sub.expand(n, k_a, mult).reshape(n, -1) if gamma else dt
+    flat_b, local_b = _block_coords(pos_b, dt_b, h, cfg)
     occ_b = _grouped_block_test(blocks.reshape(-1, 2), flat_b, local_b, g_b,
                                 anchors=[0, g_b - 1] if g_b > 1 else None)
     valid_ab = valid_a[:, :, None].expand(n, k_a, mult).reshape(n, -1)

@@ -1,7 +1,7 @@
-"""Evaluation metrics: PSNR.
+"""Evaluation metrics: PSNR, and the sRGB transfer curve.
 
-Counterpart of nerfnav_tpu/training/metrics.py (`PSNRMeter`). LPIPS needs
-pretrained towers and is ROADMAP A11."""
+Counterpart of nerfnav_tpu/training/metrics.py (`PSNRMeter`,
+`srgb_to_linear`). LPIPS needs pretrained towers and is ROADMAP A11."""
 
 import numpy as np
 
@@ -29,5 +29,17 @@ class PSNRMeter:
     def measure(self):
         return self.V / max(self.N, 1)
 
+    def write(self, writer, global_step, prefix=""):
+        """Add the PSNR as a scalar to a tensorboard writer, if there is one."""
+        if writer is not None:
+            writer.add_scalar(f"{prefix}/PSNR", self.measure(), global_step)
+
     def report(self):
         return f"PSNR = {self.measure():.6f}"
+
+
+def srgb_to_linear(x):
+    """sRGB-encoded [0, 1] values to linear ones (--color_space linear;
+    reference metrics.py:122-125)."""
+    x = np.clip(x, 0, 1)
+    return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)

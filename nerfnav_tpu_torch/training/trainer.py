@@ -1,14 +1,20 @@
 """The Trainer: the train step, its loop and checkpoints, and the eval render.
 
 Counterpart of nerfnav_tpu/training/trainer.py (`TrainerOptions`, `TrainState`
-and `Trainer`). Training runs the occupancy-grid path (`-O`): each step
-samples rays of one image (`get_rays`), renders them with `render_rays_grid`
-under a march key (densely, or packed to the point budget picked from the
-mean-count EMA), takes the MSE against the image on a random or fixed
+and `Trainer`). Each step samples rays of one image (`get_rays`) and renders
+them: with an occupancy grid (`--cuda_ray`, `-O`) by `render_rays_grid` under
+a march key (densely, or packed to the point budget picked from the
+mean-count EMA), without one by the dense `render_rays` with jittered
+samples. It takes the MSE against the image on a random or fixed
 background, and applies Adam(0.9, 0.99, eps 1e-15) at lr 0.1^(t/lr_horizon)
 (the schedule reads the pre-increment count, as optax does), the EMA of the
 params, the error-map EMA and the mean-count EMA. Every 16 steps
 `_maybe_update_occupancy` sweeps the density grid.
+
+`render_full` renders a frame in chunks through the rounds renderer on
+tile-ordered rays (the grid path), the one-shot grid render
+(`eval_rounds=False`) or the dense render; `evaluate` writes the validation
+images and `test` a camera path's frames, depth maps and video.
 
 The step is two functions, `loss_and_grads` and `apply`, joined by
 `train_step`. JAX's PRNG streams do not match torch's, so every random draw
@@ -19,8 +25,7 @@ key) and of an occupancy sweep is a tensor argument (`StepDraws`,
 the reference. The reference's compiled programs become eager calls: the
 step cache, `scan_steps` (steps here run one at a time, which the reference
 pins as step-identical), `eval_scan` and `render_full(frozen=...)` have no
-effect. The dense path without an occupancy grid, rand_pose / CLIP, device
-meshes, `test` (frame and video writing), `save_mesh` and tensorboard raise
+effect. rand_pose / CLIP, device meshes and `save_mesh` raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -33,8 +38,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from nerfnav_tpu_torch.data.provider import write_image
 from nerfnav_tpu_torch.data.rays import (
-    EMAP_SIDE, RayDraws, draw_rays, get_rays, rays_from_pixels, tile_order,
+    EMAP_SIDE, RayDraws, draw_rays, get_all_rays, get_rays, rays_from_pixels, tile_order,
 )
 from nerfnav_tpu_torch.device import resolve_device, unported
 from nerfnav_tpu_torch.models.network import NetworkConfig, init_network
@@ -42,11 +48,11 @@ from nerfnav_tpu_torch.models.occupancy import (
     draw_update, init_occupancy_state, mark_untrained_grid, update_extra_state,
 )
 from nerfnav_tpu_torch.models.renderer import (
-    RenderConfig, make_field, render_rays_grid, render_rays_grid_rounds,
+    RenderConfig, make_field, render_rays, render_rays_grid, render_rays_grid_rounds,
 )
 from nerfnav_tpu_torch.ops.marching import (
     MarchKey, beam_contract_violation, dilate_blocks_coarse, draw_march_key,
-    phase_a_group_of, plan_occupied_ladder,
+    phase_a_group_of, plan_gamma_span, plan_occupied_ladder,
 )
 from nerfnav_tpu_torch.ops.morton import block_size_of
 from nerfnav_tpu_torch.training import checkpoint as ckpt_lib
@@ -112,11 +118,14 @@ class TrainState:
 
 
 class StepDraws(NamedTuple):
-    """The random draws of one train step."""
+    """The random draws of one train step: the march key on the grid path,
+    the sample jitter (and importance-sampling draws) on the dense one."""
     idx: int                  # image index
     rays: RayDraws
     bg: torch.Tensor          # (num_rays, 3) background colors
-    march: MarchKey
+    march: Optional[MarchKey] = None
+    jitter: Optional[torch.Tensor] = None   # (num_rays, num_steps)
+    u: Optional[torch.Tensor] = None        # (num_rays, upsample_steps)
 
 
 class StepOut(NamedTuple):
@@ -146,8 +155,6 @@ class Trainer:
             raise unported("device meshes (data-parallel training and rendering)", "A11")
         if opt.rand_pose >= 0 or clip_loss_fn is not None:
             raise unported("rand_pose / CLIP-guided training", "A11")
-        if opt.tensorboard:
-            raise unported("tensorboard scalars", "A11")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rcfg = rcfg
@@ -177,6 +184,14 @@ class Trainer:
         self._beam_dilate_cache = None
         self._beam_guard_cache = {}
         self.state = self._init_state(1, params, occupancy)
+        self.writer = None  # reference trainer.py:302-309
+        if opt.tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+
+                self.writer = SummaryWriter(os.path.join(self.workspace, "run", opt.name))
+            except ImportError:
+                self.log("tensorboardX unavailable; scalars not written")
 
     # ------------------------------------------------------------- state
     def _init_state(self, n_images: int, params, occupancy=None) -> TrainState:
@@ -309,14 +324,20 @@ class Trainer:
         else:
             bg = torch.full((n, 3), 1.0 if self.opt.bg_train == "white" else 0.0,
                             device=self.device)
+        rays = draw_rays(self.gen, n, H, W, emap, device=self.device)
+        if self.march_cfg is not None:
+            return StepDraws(idx=idx, rays=rays, bg=bg,
+                             march=draw_march_key(self.gen, n, self.device))
+        rcfg = self.rcfg
         return StepDraws(
-            idx=idx, rays=draw_rays(self.gen, n, H, W, emap, device=self.device), bg=bg,
-            march=draw_march_key(self.gen, n, self.device))
+            idx=idx, rays=rays, bg=bg,
+            jitter=torch.rand((n, rcfg.num_steps), generator=self.gen, device=self.device),
+            u=(torch.rand((n, rcfg.upsample_steps), generator=self.gen, device=self.device)
+               if rcfg.upsample_steps > 0 else None))
 
     def loss_and_grads(self, state: TrainState, arrays, draws: StepDraws) -> StepOut:
-        """Render one ray batch and differentiate the MSE w.r.t. the params."""
-        if self.march_cfg is None:
-            raise unported("training without the occupancy grid (render_rays)", "A4")
+        """Render one ray batch and differentiate the MSE w.r.t. the params
+        (reference trainer.py:455-506; the dense branch :496-500)."""
         images = arrays["images"]
         H, W, C = images.shape[1:]
         emap = None if state.error_maps is None else state.error_maps[draws.idx]
@@ -326,14 +347,19 @@ class Trainer:
         if C == 4:
             gt = gt[:, :3] * gt[:, 3:] + draws.bg * (1.0 - gt[:, 3:])
         with torch.enable_grad():
-            out = render_rays_grid(
-                make_field(state.params, self.cfg), state.occupancy,
-                self._train_march_cfg(), rays["rays_o"], rays["rays_d"],
-                key=draws.march, bg_color=draws.bg, sample_budget=self._current_budget())
+            field = make_field(state.params, self.cfg)
+            if self.march_cfg is None:
+                out = render_rays(field, self.rcfg, rays["rays_o"], rays["rays_d"],
+                                  jitter=draws.jitter, u=draws.u, bg_color=draws.bg)
+            else:
+                out = render_rays_grid(
+                    field, state.occupancy, self._train_march_cfg(), rays["rays_o"],
+                    rays["rays_d"], key=draws.march, bg_color=draws.bg,
+                    sample_budget=self._current_budget())
             per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
             loss = per_ray.mean()
             grads = torch.autograd.grad(loss, _leaves(state.params))
-        return StepOut(loss.detach(), per_ray.detach(), out["n_samples"], list(grads),
+        return StepOut(loss.detach(), per_ray.detach(), out.get("n_samples"), list(grads),
                        rays["inds"])
 
     @torch.no_grad()
@@ -406,7 +432,12 @@ class Trainer:
                     idxs = [rng.integers(len(train_ds))]
                 for idx in idxs:
                     draws = self.draw_step(self.state, int(idx), H, W)
-                    total += self.train_step(self.state, arrays, draws)
+                    loss = self.train_step(self.state, arrays, draws)
+                    total += loss
+                    # read on the sweep cadence, where the loop syncs anyway
+                    if (self.writer is not None
+                            and self.global_step % self.opt.update_extra_interval == 0):
+                        self.writer.add_scalar("train/loss", float(loss), self.global_step)
                 s += len(idxs)
             avg = float(total) / steps
             self.stats["loss"].append(avg)
@@ -551,16 +582,21 @@ class Trainer:
             bm //= 2
         return max(bm, 1)
 
-    def _planned_ladder(self, occupancy) -> int:
-        """Occupancy-derived phase-A ladder length for eval rendering,
-        planned once per occupancy version (0 = the config's auto ladder)."""
+    def _planned_ladder(self, occupancy):
+        """Occupancy-derived ladder plan for the rounds eval render, planned
+        once per occupancy version: an int phase-A length (dt_gamma 0,
+        rounded up to whole anchor runs) or a float gamma-ladder span
+        (dt_gamma > 0, rounded up to fine-cell edges); 0 = the config's auto
+        ladder (reference trainer.py:1103-1155)."""
         mcfg = self.march_cfg
         if (mcfg is None or not self.opt.eval_occ_ladder
                 or not self.opt.eval_rounds or not isinstance(occupancy, dict)):
             return 0
-        if mcfg.dt_gamma > 0.0:
-            raise unported("dt_gamma > 0 (gamma-span ladder plan)", "A6")
-        if not mcfg.coarse_normalized or mcfg.t_a0_steps:
+        gamma = mcfg.dt_gamma > 0.0
+        if gamma:
+            if mcfg.gamma_span:
+                return 0
+        elif not mcfg.coarse_normalized or mcfg.t_a0_steps:
             return 0
         cached = self._ladder_plan
         if cached is not None and cached[0] == self._occ_version:
@@ -568,41 +604,71 @@ class Trainer:
         bits = occupancy["bitfield"].cpu().numpy()
         occ = np.unpackbits(bits, axis=-1, bitorder="little")
         ecfg = self._eval_march_cfg()
-        t_a0 = plan_occupied_ladder(occ, ecfg)
-        if t_a0:
-            g = phase_a_group_of(ecfg)
-            t_a0 = -(-t_a0 // g) * g
-        self._ladder_plan = (self._occ_version, t_a0)
-        return t_a0
+        if gamma:
+            plan = plan_gamma_span(occ, ecfg)
+            if plan:
+                cell = 2.0 * min(2.0 ** (ecfg.cascades - 1), ecfg.bound) / ecfg.grid_size
+                plan = float(np.ceil(plan / cell) * cell)
+                if plan >= 2.0 * np.sqrt(3.0) * max(ecfg.bound, 1.0):
+                    plan = 0.0  # no shrink: keep the auto ladder
+        else:
+            plan = plan_occupied_ladder(occ, ecfg)
+            if plan:
+                g = phase_a_group_of(ecfg)
+                plan = -(-plan // g) * g
+        self._ladder_plan = (self._occ_version, plan)
+        return plan
 
-    def _chunk_renderer(self, t_a0: int = 0, beam: int = 0):
-        """The eval chunk renderer for a planned ladder length (0 = auto) and
-        beam width (0 = the march config's own)."""
-        cfg = self.cfg
-        mcfg = self._apply_ladder_plan(self._eval_march_cfg(), t_a0)
+    def _chunk_renderer(self, t_a0=0, beam: int = 0):
+        """The eval chunk renderer: the rounds renderer on a planned ladder
+        (0 = auto) and beam width (0 = the march config's own), the one-shot
+        grid render (eval_rounds=False), or the dense render_rays when there
+        is no occupancy grid (reference trainer.py:646-723)."""
+        cfg, rcfg = self.cfg, self.rcfg
+        mcfg = self._eval_march_cfg()
+        if mcfg is None:
+            def render_dense(params, occupancy, rays_o, rays_d, bg_color, crop_aabb=None):
+                return render_rays(make_field(params, cfg), rcfg, rays_o, rays_d,
+                                   bg_color=bg_color, crop_aabb=crop_aabb)
+
+            return render_dense
         if beam and beam > 1:
             mcfg = replace(mcfg, beam=beam)
+        if not self.opt.eval_rounds:
+            def render_grid(params, occupancy, rays_o, rays_d, bg_color, crop_aabb=None):
+                return render_rays_grid(make_field(params, cfg), occupancy, mcfg, rays_o,
+                                        rays_d, bg_color=bg_color, crop_aabb=crop_aabb)
+
+            return render_grid
+        mcfg = self._apply_ladder_plan(mcfg, t_a0)
         shade_order = self.opt.shade_order
 
-        def render_chunk(params, occupancy, rays_o, rays_d, bg_color):
+        def render_chunk(params, occupancy, rays_o, rays_d, bg_color, crop_aabb=None):
             return render_rays_grid_rounds(
                 make_field(params, cfg), occupancy, mcfg, rays_o, rays_d,
-                bg_color=bg_color, shade_order=shade_order)
+                bg_color=bg_color, crop_aabb=crop_aabb, shade_order=shade_order)
 
         return render_chunk
 
-    def _frame_rays(self, pose, intrinsics, H, W, chunk, pixel_offset):
-        """Tile-ordered, chunk-padded rays of one frame: (ro, rd, inv)."""
-        tc = self._tile_layout(H, W, chunk)
+    def _frame_rays(self, pose, intrinsics, H, W, chunk, pixel_offset, tiles=True):
+        """Chunk-padded rays of one frame, (ro, rd, inv): tile-ordered with
+        the inverse permutation, or row-major (inv None) padded with rays
+        from the origin along (1, 1, 1)."""
         offset = torch.as_tensor(
             pixel_offset if pixel_offset is not None else (0.0, 0.0),
             dtype=torch.float32, device=self.device)
-        r = rays_from_pixels(
-            torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device),
-            torch.as_tensor(np.asarray(intrinsics), dtype=torch.float32,
-                            device=self.device),
-            tc["i"], tc["j"], offset=offset)
-        return r["rays_o"], r["rays_d"], tc["inv"]
+        pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device)
+        intrinsics = torch.as_tensor(np.asarray(intrinsics), dtype=torch.float32,
+                                     device=self.device)
+        if tiles:
+            tc = self._tile_layout(H, W, chunk)
+            r = rays_from_pixels(pose, intrinsics, tc["i"], tc["j"], offset=offset)
+            return r["rays_o"], r["rays_d"], tc["inv"]
+        r = get_all_rays(pose, intrinsics, H, W, offset=offset)
+        pad = (-H * W) % chunk
+        ro = torch.cat([r["rays_o"], torch.zeros((pad, 3), device=self.device)])
+        rd = torch.cat([r["rays_d"], torch.ones((pad, 3), device=self.device)])
+        return ro, rd, None
 
     def _frame_beam(self, intrinsics, H, W, rd) -> int:
         """The beam width render_full uses for this frame (0 = off): AUTO from
@@ -630,68 +696,119 @@ class Trainer:
                     crop_aabb=None, pixel_offset=None, frozen=False):
         """Render an H x W frame: (image (H, W, 3), depth (H, W)).
 
-        pose: (4, 4) camera-to-world; intrinsics: (fx, fy, cx, cy);
-        pixel_offset: optional (dx, dy) subpixel shift. `frozen` has no
-        effect in eager PyTorch."""
-        if self.march_cfg is None:
-            raise unported("the dense render path (no occupancy grid)", "A4")
-        if not self.opt.eval_rounds:
-            raise unported("the single-shot grid render (eval_rounds=False)", "A7")
+        pose: (4, 4) camera-to-world; intrinsics: (fx, fy, cx, cy); crop_aabb:
+        optional (6,) box that narrows every ray; pixel_offset: optional
+        (dx, dy) subpixel shift. The grid rounds path renders tile-ordered
+        chunks (beam and ladder plan as the reference picks them); the
+        one-shot grid and the dense paths render row-major chunks (reference
+        trainer.py:1157-1282). `frozen` has no effect in eager PyTorch."""
         if self.opt.eval_frame_phase_a:
             raise unported("eval_frame_phase_a (frame-level phase A)", "A6")
-        if crop_aabb is not None:
-            raise unported("crop_aabb", "A6")
+        grid = self.march_cfg is not None
         occupancy = self.occupancy
-        if not (isinstance(occupancy, dict) and occupancy.get("blocks") is not None
-                and occupancy.get("blocks_coarse") is not None):
+        if grid and not (isinstance(occupancy, dict) and occupancy.get("blocks") is not None
+                         and occupancy.get("blocks_coarse") is not None):
             raise unported("rendering without block occupancy tables "
                            "(byte-bitfield marchers)", "A6")
+        use_tiles = grid and self.opt.eval_rounds
         with torch.no_grad():
             if self.opt.eval_table_dtype != "float32":
                 params = self._cast_eval_tables(params)
+            if crop_aabb is not None:
+                crop_aabb = torch.as_tensor(np.asarray(crop_aabb, np.float32),
+                                            device=self.device)
             n = H * W
             chunk = self.rcfg.max_ray_batch
-            ro, rd, inv = self._frame_rays(pose, intrinsics, H, W, chunk,
-                                           pixel_offset)
+            ro, rd, inv = self._frame_rays(pose, intrinsics, H, W, chunk, pixel_offset,
+                                           tiles=use_tiles)
             t_a0 = self._planned_ladder(occupancy)
-            bm = self._frame_beam(intrinsics, H, W, rd)
+            bm = self._frame_beam(intrinsics, H, W, rd) if use_tiles else 0
             if bm > 1:
                 occupancy = self._beamed_occupancy(occupancy)
             render_chunk = self._chunk_renderer(t_a0, bm)
             imgs, depths = [], []
             for i in range(0, ro.shape[0], chunk):
                 out = render_chunk(params, occupancy, ro[i : i + chunk],
-                                   rd[i : i + chunk], float(bg_color))
+                                   rd[i : i + chunk], float(bg_color), crop_aabb)
                 imgs.append(out["image"])
                 depths.append(out["depth"])
-            image = torch.cat(imgs)[:n][inv]
-            depth = torch.cat(depths)[:n][inv]
+            image = torch.cat(imgs)[:n]
+            depth = torch.cat(depths)[:n]
+            if inv is not None:
+                image, depth = image[inv], depth[inv]
         return image.reshape(H, W, 3), depth.reshape(H, W)
 
     def evaluate(self, ds, name: str | None = None, use_ema: bool = True):
         """Mean PSNR of render_full over ds's frames (white background),
-        with the EMA params unless use_ema=False; a new best writes the
-        model-only checkpoint. Validation images are not written."""
+        with the EMA params unless use_ema=False; writes each frame to
+        <workspace>/validation/<name>_epNNNN_NNNN.png, and a new best writes
+        the model-only checkpoint (reference trainer.py:1284-1319)."""
         params = self.state.ema_params if use_ema else self.state.params
         arrays = ds.as_arrays()
         meter = PSNRMeter()
+        out_dir = os.path.join(self.workspace, "validation")
+        os.makedirs(out_dir, exist_ok=True)
         for i in range(len(ds)):
             image, _ = self.render_full(params, arrays["poses"][i], arrays["intrinsics"],
                                         ds.H, ds.W, bg_color=1.0)
+            image = image.cpu().numpy()
             gt = np.asarray(arrays["images"][i], dtype=np.float32)
             if gt.shape[-1] == 4:
                 gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
-            meter.update(image.cpu().numpy(), gt)
+            meter.update(image, gt)
+            self._save_image(os.path.join(
+                out_dir, f"{self.opt.name}_ep{self.epoch:04d}_{i:04d}.png"), image)
         result = meter.measure()
         self.stats["results"].append(result)
         if self.stats["best_result"] is None or result > self.stats["best_result"]:
             self.stats["best_result"] = result
             self.save_checkpoint(best=True)
+        meter.write(self.writer, self.global_step, prefix="evaluate")
         self.log(f"eval epoch {self.epoch}: {meter.report()}")
         return result
 
     def test(self, ds, write_video: bool = True, name: str | None = None):
-        raise unported("Trainer.test (frame and video writing)", "A11")
+        """Render ds's camera path with the EMA params into
+        <workspace>/results: <name>_NNNN.png frames, <name>_NNNN_depth.png
+        depth maps (scaled by their maximum) and, with write_video, an mp4 at
+        25 fps. Where no mp4 writer opens, the log says so and the PNGs stay.
+        Returns the uint8 frames (reference trainer.py:1321-1366)."""
+        import cv2
+
+        name = name or self.opt.name
+        out_dir = os.path.join(self.workspace, "results")
+        os.makedirs(out_dir, exist_ok=True)
+        frames = []
+        for i in range(len(ds)):
+            image, depth = self.render_full(self.state.ema_params, ds.poses[i],
+                                            ds.intrinsics, ds.H, ds.W, bg_color=1.0)
+            img8 = (np.clip(image.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+            frames.append(img8)
+            self._save_image(os.path.join(out_dir, f"{name}_{i:04d}.png"), img8)
+            d = depth.cpu().numpy()
+            self._save_image(os.path.join(out_dir, f"{name}_{i:04d}_depth.png"),
+                             d / max(float(d.max()), 1e-6))
+        if write_video and frames:
+            path = os.path.join(out_dir, f"{name}.mp4")
+            h, w = frames[0].shape[:2]
+            video = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, (w, h))
+            if video.isOpened():
+                try:
+                    for f in frames:
+                        video.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+                finally:
+                    video.release()
+            else:
+                self.log(f"no mp4 writer opened for {path} (cv2 {cv2.__version__}); "
+                         "pngs saved")
+        return frames
+
+    @staticmethod
+    def _save_image(path, img):
+        """An image in [0, 1] (or uint8) as an 8-bit PNG."""
+        if img.dtype != np.uint8:
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        write_image(path, img)
 
     def save_mesh(self, path: str | None = None, resolution: int = 256,
                   threshold: float = 10.0):

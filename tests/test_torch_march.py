@@ -274,3 +274,83 @@ def test_march_with_key_matches(stride_phase, dt_mult, monkeypatch):
         np.testing.assert_allclose(mt[k].numpy(), np.asarray(mj[k]), rtol=1e-6, atol=0)
     unkeyed = tm.march(_to_t(o), _to_t(d), occupancy_from_numpy(occ, device="cpu"), cfg_t)
     assert not torch.equal(unkeyed["z"], mt["z"])  # the key moved the samples
+
+
+def test_march_config_gamma_and_plan_gamma_span():
+    """plan_gamma_span against the reference on the shell occupancy, bound 1
+    and 2; an empty grid plans 0."""
+    for bound, grid in ((1.0, 32), (2.0, 32), (2.0, 128)):
+        _, occs = shell_occupancy(grid, 1 + int(np.ceil(np.log2(bound))))
+        a = jm.MarchConfig(bound=bound, grid_size=grid, dt_gamma=1 / 128)
+        b = tm.MarchConfig(bound=bound, grid_size=grid, dt_gamma=1 / 128)
+        span = tm.plan_gamma_span(occs, b)
+        assert 0.0 < span == jm.plan_gamma_span(occs, a)
+        for x, y in zip(dataclasses.replace(a, gamma_span=span).coarse_gamma_ladder,
+                        dataclasses.replace(b, gamma_span=span).coarse_gamma_ladder):
+            np.testing.assert_array_equal(x, y)
+    assert tm.plan_gamma_span(np.zeros_like(occs), b) == 0.0
+
+
+def test_crop_near_far():
+    """crop_near_far and near_far_aabb with a crop AABB: within 1e-5; rays
+    that miss the crop get far == near."""
+    o, d = camera_rays(16, 1.0)
+    crop = np.asarray([-0.3, -0.5, -0.2, 0.4, 0.1, 0.6], np.float32)
+    nj, fj = jm.near_far_aabb(jnp.asarray(o), jnp.asarray(d), 1.0, 0.2, jnp.asarray(crop))
+    nt, ft = tm.near_far_aabb(_to_t(o), _to_t(d), 1.0, 0.2, _to_t(crop))
+    np.testing.assert_allclose(nt.numpy(), np.asarray(nj), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=0, atol=1e-5)
+    assert 0 < int((ft == nt).sum()) < len(o)
+
+
+@pytest.mark.parametrize("case", ["eval_beam8", "train_key", "crop"])
+def test_march_gamma_matches(case, monkeypatch):
+    """The static gamma ladder (dt_gamma 1/128) at bound 1: the eval march
+    (normalized, 2 anchors, beam 8), the keyed training march (fixed ladder,
+    3 anchors) and a march inside a crop AABB, against the JAX march run op
+    by op (its static-row selects and integer helpers jitted: exact either
+    way). valid exact, z/dt to rtol 1e-6. The fine test's cascade rides each
+    segment's own step here, so a sample with dt near a cascade's edge would
+    show a different valid mask."""
+    grid, bound = 32, 1.0
+    occ, _ = shell_occupancy(grid, 1)
+    kw = dict(bound=bound, grid_size=grid, max_steps=256, samples_per_ray=8,
+              min_near=0.05, dt_gamma=1 / 128, coarse_segments=12, coarse_anchors=2)
+    key = mkey = crop = None
+    o, d = camera_rays(16, bound, focal=20.0)
+    occ_j = {k: jnp.asarray(v) for k, v in occ.items()}
+    occ_t = occupancy_from_numpy(occ, device="cpu")
+    if case == "eval_beam8":
+        kw["beam"] = 8
+        occ_t["blocks_coarse_dilated"] = tm.dilate_blocks_coarse(
+            occ_t["blocks_coarse"], grid // 4, 4)
+        occ_j["blocks_coarse_dilated"] = jnp.asarray(
+            occ_t["blocks_coarse_dilated"].numpy().astype(np.uint32))
+    elif case == "train_key":
+        kw.update(coarse_normalized=False, coarse_segments=16, coarse_anchors=3)
+        key = jax.random.PRNGKey(3)
+        k_start, k_phase = jax.random.split(key)
+        mkey = tm.MarchKey(
+            u=_to_t(jax.random.uniform(k_start, (o.shape[0],))),
+            phase=_to_t(jax.random.randint(k_phase, (o.shape[0], 1), 0, 2**30)).long())
+    else:
+        crop = np.asarray([-0.6, -0.6, -0.3, 0.5, 0.6, 0.7], np.float32)
+    cfg_j, cfg_t = jm.MarchConfig(**kw), tm.MarchConfig(**kw)
+    _jit_exact_helpers(monkeypatch)
+    monkeypatch.setattr(
+        jm, "_compact_idx",
+        lambda occ_, k, spread=True, key=None, phase_u=None, **kw_: _COMPACT_KEYED(
+            occ_, key, phase_u, k, spread))
+    monkeypatch.setattr(jm, "_select_static_row",
+                        lambda row, sel: jnp.asarray(np.asarray(row, np.float32))[sel])
+    mj = jm.march(jnp.asarray(o), jnp.asarray(d), occ_j, cfg_j, key=key,
+                  crop_aabb=None if crop is None else jnp.asarray(crop))
+    mt = tm.march(_to_t(o), _to_t(d), occ_t, cfg_t, key=mkey,
+                  crop_aabb=None if crop is None else _to_t(crop))
+    vj = np.asarray(mj["valid"])
+    assert vj.sum() > 100
+    np.testing.assert_array_equal(mt["valid"].numpy(), vj)
+    for k in ("z", "dt"):
+        np.testing.assert_allclose(mt[k].numpy(), np.asarray(mj[k]), rtol=1e-6, atol=0)
+    dts = np.asarray(mj["dt"])[vj]
+    assert dts.max() > 2.0 * dts.min()  # the steps grow along the ladder

@@ -113,6 +113,37 @@ def test_hash_indices_exact(case):
         np.testing.assert_array_equal(it.numpy(), _np(ij).astype(np.int64))
 
 
+def points_next_to_cell_faces(bound, resolutions, n_per_level=512, seed=0):
+    """(N, 3) float32 points within one float32 step of the cell faces of
+    each resolution's lattice over [-bound, bound]: on a face, one step
+    below and one step above it, on every axis."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for r in resolutions:
+        k = rng.integers(0, r + 1, (n_per_level, 3))
+        x = (k / r * 2.0 * bound - bound).astype(np.float32)
+        step = rng.integers(-1, 2, (n_per_level, 3))
+        x = np.where(step > 0, np.nextafter(x, np.float32(np.inf)),
+                     np.where(step < 0, np.nextafter(x, np.float32(-np.inf)), x))
+        pts.append(x.astype(np.float32))
+    return np.clip(np.concatenate(pts), -bound, bound).astype(np.float32)
+
+
+@pytest.mark.parametrize("bound", [1.0, 1.5, 3.0])
+def test_unit_coords_bits_next_to_cell_faces(bound):
+    """The encoder's unit coordinates (x + bound) / (2 bound) equal the
+    reference's bit for bit on points next to cell faces, and so does the
+    cell each point falls in at every level of the reference-exact grid."""
+    cfg = thg.HashGridConfig(desired_resolution=int(2048 * bound))
+    x = points_next_to_cell_faces(bound, cfg.resolutions)
+    x01_j = np.asarray((jnp.asarray(x) + bound) / (2.0 * bound))
+    x01_t = thg.unit_coords(torch.as_tensor(x), bound).numpy()
+    np.testing.assert_array_equal(x01_t.view(np.uint32), x01_j.view(np.uint32))
+    for r in cfg.resolutions:
+        np.testing.assert_array_equal(np.floor(x01_t * np.float32(r)),
+                                      np.floor(x01_j * np.float32(r)))
+
+
 ACTS = ["relu", "none", "exp", "sigmoid", "sine", "squareplus", "softplus"]
 
 

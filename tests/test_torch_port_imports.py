@@ -39,19 +39,24 @@ def test_no_jax_imports(path):
 
 NAV_MODULES = ["nav/math_utils.py", "nav/dynamics.py", "nav/astar.py", "nav/planner.py",
                "nav/estimator.py", "nav/fused.py", "nav/agent.py", "native/__init__.py",
-               "cli/flags.py", "cli/simulate.py", "data/synthetic.py"]
+               "cli/flags.py", "cli/simulate.py", "data/synthetic.py", "data/provider.py",
+               "cli/main_nerf.py", "training/trainer.py", "training/metrics.py",
+               "ops/marching.py", "models/renderer.py"]
+# optional host libraries: imported by the functions that use them only
+LAZY = ("cv2", "scipy", "tensorboardX")
 
 
 @pytest.mark.parametrize("rel", NAV_MODULES)
 def test_nav_and_cli_modules_are_checked(rel):
-    """The nav stack and its CLI are among the checked files, and import
-    cv2 only inside the functions that use it: the card's machine may lack
-    it."""
+    """The nav stack, the dataset, the CLIs and the trainer are among the
+    checked files, and import cv2, scipy and tensorboardX only inside the
+    functions that use them: the card's machine may lack one."""
     path = ROOT / "nerfnav_tpu_torch" / rel
     assert path in PORT_FILES
     tree = ast.parse(path.read_text(), str(path))
     top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
-    assert not any("cv2" in m for m in _imported_modules(ast.Module(body=top, type_ignores=[])))
+    mods = list(_imported_modules(ast.Module(body=top, type_ignores=[])))
+    assert not [m for m in mods if m.split(".")[0] in LAZY]
 
 
 def test_checker_catches_forbidden_names():

@@ -9,6 +9,7 @@ activation by one bf16 step.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -132,30 +133,35 @@ def test_rounds_renderer_fp32(shade_order, round_compact, monkeypatch):
         np.testing.assert_allclose(ot[k].numpy(), np.asarray(oj[k]), rtol=0, atol=1e-5)
 
 
-def _trainers(tmp_path, cfg_kw, bound, opt_kw, hw=16):
-    """A JAX Trainer and its port on the same params and shell occupancy."""
-    grid = 32
+def _trainers(tmp_path, cfg_kw, bound, opt_kw, hw=16, grid=True, **mkw_extra):
+    """A JAX Trainer and its port on the same params and shell occupancy
+    (grid=False: the dense path, no occupancy grid)."""
+    gs = 32
     cascades = 1 + int(np.ceil(np.log2(bound)))
-    occ, _ = shell_occupancy(grid, cascades)
-    mkw = dict(bound=bound, grid_size=grid, max_steps=256, samples_per_ray=8,
-               min_near=0.05)
+    occ, _ = shell_occupancy(gs, cascades)
+    mkw = dict(bound=bound, grid_size=gs, max_steps=256, samples_per_ray=8,
+               min_near=0.05, **mkw_extra)
     rcfg_kw = dict(num_steps=16, upsample_steps=0, min_near=0.05, max_ray_batch=128)
     pj, pt = _params(cfg_kw)
+    grid_kw_j = grid_kw_t = {}
+    if grid:
+        grid_kw_j = dict(occupancy_cfg=JOccCfg(bound=bound, grid_size=gs),
+                         march_cfg=jm.MarchConfig(**mkw))
+        grid_kw_t = dict(occupancy_cfg=TOccCfg(bound=bound, grid_size=gs),
+                         march_cfg=tm.MarchConfig(**mkw),
+                         occupancy=occupancy_from_numpy(occ, device="cpu"))
     tj = JTrainer(jnet.NetworkConfig(**cfg_kw), jrend.RenderConfig(**rcfg_kw),
-                  JOpts(name="port", workspace=str(tmp_path),
-                        use_checkpoint="scratch", **opt_kw),
-                  params=pj, occupancy_cfg=JOccCfg(bound=bound, grid_size=grid),
-                  march_cfg=jm.MarchConfig(**mkw))
+                  JOpts(name="port", workspace=str(tmp_path / "j"),
+                        use_checkpoint="scratch", **opt_kw), params=pj, **grid_kw_j)
     tj.state = tj._init_state(1)
-    st = dict(tj.state.occupancy)
-    st.update({k: jnp.asarray(v) for k, v in occ.items()})
-    tj.state = tj.state._replace(occupancy=st)
-    tj._occ_version += 1
+    if grid:
+        st = dict(tj.state.occupancy)
+        st.update({k: jnp.asarray(v) for k, v in occ.items()})
+        tj.state = tj.state._replace(occupancy=st)
+        tj._occ_version += 1
     tt = TTrainer(tnet.NetworkConfig(**cfg_kw), trend.RenderConfig(**rcfg_kw),
-                  TOpts(**opt_kw), params=pt,
-                  occupancy_cfg=TOccCfg(bound=bound, grid_size=grid),
-                  march_cfg=tm.MarchConfig(**mkw),
-                  occupancy=occupancy_from_numpy(occ, device="cpu"), device="cpu")
+                  TOpts(name="port", workspace=str(tmp_path / "t"), **opt_kw), params=pt,
+                  device="cpu", **grid_kw_t)
     intr = np.asarray([hw * 1.4, hw * 1.4, hw / 2, hw / 2], np.float32)
     pose = POSE.copy()
     pose[2, 3] *= bound
@@ -199,15 +205,25 @@ def test_entry_points_need_cuda_or_cpu():
 
 
 def test_unported_options_raise(tmp_path):
-    """Options outside the slice raise NotImplementedError naming ROADMAP."""
+    """Options outside the slice raise NotImplementedError naming ROADMAP:
+    the frame-level phase A, the phase-A0 prefilter, depth windows and the
+    occupancy debounce."""
     _, tt, pose, intr = _trainers(tmp_path, _net_cfg(), 1.0, {})
-    tt.march_cfg = dataclasses.replace(tt.march_cfg, dt_gamma=1 / 128)
+    tt.opt.eval_frame_phase_a = True
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tt.render_full(tt.params, pose, intr, 8, 8)
-    tt.march_cfg = dataclasses.replace(tt.march_cfg, dt_gamma=0.0)
+    tt.opt.eval_frame_phase_a = False
+    tt.march_cfg = dataclasses.replace(tt.march_cfg, a0_segments=4)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tt.render_full(tt.params, pose, intr, 8, 8,
-                       crop_aabb=np.asarray([-1, -1, -1, 1, 1, 1], np.float32))
+        tt.render_full(tt.params, pose, intr, 8, 8)
+    o, d = camera_rays(4, 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tm.march(torch.as_tensor(o), torch.as_tensor(d), tt.occupancy,
+                 tm.MarchConfig(bound=1.0, grid_size=32), z_window=(0.5, 1.5))
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        from nerfnav_tpu_torch.models.occupancy import init_occupancy_state
+        init_occupancy_state(TOccCfg(bound=1.0, grid_size=32, occ_debounce=True),
+                             device="cpu")
 
 
 def test_beam_rules_match(tmp_path):
@@ -327,3 +343,126 @@ def test_render_rays_grid_with_grads(budget, monkeypatch):
         b = np.asarray(b)
         assert np.abs(b).max() > 0
         np.testing.assert_allclose(a.grad.numpy(), b, rtol=0, atol=1e-5 * np.abs(b).max())
+
+
+def _march_by_port(monkeypatch, occ_t):
+    """Let the jitted JAX renderers shade the port's march of their rays (a
+    host callback): under jit XLA contracts the JAX march's multiply-adds
+    into FMAs and moves samples across cell boundaries, and the port
+    matches the march run op by op (test_torch_march.py)."""
+    def march_j(rays_o, rays_d, occupancy, cfg, key=None, crop_aabb=None, **kw):
+        cfg_t = tm.MarchConfig(**dataclasses.asdict(cfg))
+        n, k = rays_o.shape[0], cfg.samples_per_ray
+        f32 = jnp.float32
+        shapes = {"z": jax.ShapeDtypeStruct((n, k), f32),
+                  "dt": jax.ShapeDtypeStruct((n, k), f32),
+                  "valid": jax.ShapeDtypeStruct((n, k), jnp.bool_),
+                  "near": jax.ShapeDtypeStruct((n,), f32),
+                  "far": jax.ShapeDtypeStruct((n,), f32)}
+
+        def run(o, d, *crop):
+            m = tm.march(torch.as_tensor(np.asarray(o)), torch.as_tensor(np.asarray(d)),
+                         occ_t, cfg_t,
+                         crop_aabb=torch.as_tensor(np.asarray(crop[0])) if crop else None)
+            return {name: v.numpy() for name, v in m.items()}
+
+        extra = () if crop_aabb is None else (crop_aabb,)
+        return jax.pure_callback(run, shapes, rays_o, rays_d, *extra)
+
+    monkeypatch.setattr(jm, "march", march_j)
+
+
+@pytest.mark.parametrize("mode", ["gamma", "one_shot", "dense"])
+def test_render_full_reference_branches(tmp_path, mode, monkeypatch):
+    """render_full on the branches of the reference-exact configuration, xla
+    fp32 field and tables, image and depth within 1e-5: the rounds path on
+    the static gamma ladder (dt_gamma 1/128, its planned span equal), the
+    one-shot grid render (eval_rounds=False, row-major chunks) and the dense
+    render_rays without an occupancy grid; each also inside a crop AABB. The
+    grid paths shade the port's march (see _march_by_port)."""
+    opt = dict(eval_beam=1, eval_table_dtype="float32")
+    mkw = {}
+    if mode == "gamma":
+        mkw = dict(dt_gamma=1 / 128)
+    elif mode == "one_shot":
+        opt["eval_rounds"] = False
+    tj, tt, pose, intr = _trainers(tmp_path, _net_cfg(), 1.0, opt, grid=mode != "dense",
+                                   **mkw)
+    if mode != "dense":
+        _march_by_port(monkeypatch, tt.occupancy)
+    crop = np.asarray([-0.6, -0.5, -0.7, 0.4, 0.6, 0.3], np.float32)
+    for c in (None, crop):
+        ij, dj = tj.render_full(tj.params, pose, intr, 16, 16,
+                                crop_aabb=None if c is None else jnp.asarray(c))
+        it, dt = tt.render_full(tt.params, pose, intr, 16, 16, crop_aabb=c)
+        assert (np.asarray(ij) < 0.5).mean() > 0.05
+        np.testing.assert_allclose(it.numpy(), np.asarray(ij), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0, atol=1e-5)
+    assert tt._ladder_plan == tj._ladder_plan
+    if mode == "gamma":  # a span (the speckled shell fills the cube: no shrink)
+        assert isinstance(tt._ladder_plan[1], float)
+    assert not np.allclose(it.numpy(), tt.render_full(tt.params, pose, intr, 16, 16)[0])
+
+
+def test_render_rays_crop_matches():
+    """The dense render_rays inside a crop AABB, analytic-free: the port's
+    network field against the JAX one, within 1e-5."""
+    kw = _net_cfg()
+    pj, pt = _params(kw)
+    o, d = camera_rays(8, 1.0, focal=10.0)
+    crop = np.asarray([-0.5, -0.4, -0.6, 0.5, 0.3, 0.2], np.float32)
+    rcfg = dict(num_steps=24, upsample_steps=0, min_near=0.05)
+    oj = jrend.render_rays(jrend.make_field(pj, jnet.NetworkConfig(**kw)),
+                           jrend.RenderConfig(**rcfg), jnp.asarray(o), jnp.asarray(d),
+                           crop_aabb=jnp.asarray(crop))
+    ot = trend.render_rays(trend.make_field(pt, tnet.NetworkConfig(**kw)),
+                           trend.RenderConfig(**rcfg), torch.as_tensor(o),
+                           torch.as_tensor(d), crop_aabb=torch.as_tensor(crop))
+    for k in ("image", "depth", "weights_sum"):
+        np.testing.assert_allclose(ot[k].numpy(), np.asarray(oj[k]), rtol=0, atol=1e-5)
+
+
+class _Views:
+    """What evaluate and test read: poses, intrinsics, H, W, as_arrays()."""
+
+    def __init__(self, poses, images, intrinsics):
+        self.poses, self.images, self.intrinsics = poses, images, intrinsics
+        self.H, self.W = images.shape[1:3]
+
+    def __len__(self):
+        return len(self.poses)
+
+    def as_arrays(self):
+        return {"poses": self.poses, "images": self.images, "intrinsics": self.intrinsics}
+
+
+def test_evaluate_and_test_write_images(tmp_path, monkeypatch):
+    """evaluate on the gamma grid path: the PSNR within 1e-4 of the JAX
+    Trainer's and the validation PNGs within one 8-bit code value; test:
+    the uint8 frames within one code value, the frame and depth PNGs under
+    results/ and the mp4 (or the log line that says why not)."""
+    import cv2
+
+    tj, tt, pose, intr = _trainers(tmp_path, _net_cfg(), 1.0,
+                                   dict(eval_beam=1, eval_table_dtype="float32"),
+                                   dt_gamma=1 / 128)
+    _march_by_port(monkeypatch, tt.occupancy)
+    rng = np.random.default_rng(4)
+    poses = np.stack([pose, pose])
+    poses[1, 0, 3] += 0.1
+    views = _Views(poses, rng.random((2, 16, 16, 4)).astype(np.float32), intr)
+    pj, pt = tj.evaluate(views), tt.evaluate(views)
+    assert pt == pytest.approx(pj, abs=1e-4)
+    names = sorted(os.listdir(tmp_path / "t" / "validation"))
+    assert names == sorted(os.listdir(tmp_path / "j" / "validation")) and len(names) == 2
+    for n in names:
+        a = cv2.imread(str(tmp_path / "t" / "validation" / n)).astype(int)
+        b = cv2.imread(str(tmp_path / "j" / "validation" / n)).astype(int)
+        assert np.abs(a - b).max() <= 1
+    fj, ft = tj.test(views), tt.test(views)
+    for a, b in zip(ft, fj):
+        assert a.dtype == np.uint8 and np.abs(a.astype(int) - np.asarray(b, int)).max() <= 1
+    out = set(os.listdir(tmp_path / "t" / "results"))
+    assert {"port_0000.png", "port_0001.png", "port_0000_depth.png"} <= out
+    with open(tmp_path / "t" / "log_port.txt") as f:
+        assert "port.mp4" in out or "no mp4 writer opened" in f.read()

@@ -17,6 +17,7 @@ entries it leaves out.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -199,6 +200,57 @@ def test_train_step_matches(backend, budget, tmp_path, monkeypatch):
     assert tt.global_step == 1
 
 
+@pytest.mark.parametrize("upsample", [0, 8])
+def test_dense_train_step_matches(upsample, tmp_path):
+    """The dense train step (no occupancy grid: render_rays over 16 jittered
+    samples a ray, with upsample > 0 also importance samples) from the JAX
+    step's key, split as its step and render_rays split it: the loss, the
+    per-ray loss (through the error-map EMA) and the gradients (through
+    Adam's first moment) within 1e-5 of each tensor's largest entry, xla
+    fp32 field. No valid count: the mean-count EMA stays unset."""
+    net_kw = _net_kw()
+    rkw = dict(num_steps=16, upsample_steps=upsample, min_near=0.05)
+    okw = dict(num_rays=N_RAYS, iters=200, use_checkpoint="scratch", error_map=True)
+    pj = jnet.init_network(jax.random.PRNGKey(0), jnet.NetworkConfig(**net_kw))
+    tj = JTrainer(jnet.NetworkConfig(**net_kw), jrend.RenderConfig(**rkw),
+                  JOpts(name="j", workspace=str(tmp_path / "j"), **okw), params=pj)
+    tj.state = tj._init_state(2)
+    tt = ttrain.Trainer(tnet.NetworkConfig(**net_kw), trend.RenderConfig(**rkw),
+                        ttrain.TrainerOptions(name="t", workspace=str(tmp_path / "t"), **okw),
+                        params=params_from_numpy(jax.tree_util.tree_map(np.asarray, pj),
+                                                 device="cpu"), device="cpu")
+    tt.state.error_maps = torch.full((2, 128 * 128), 0.1)
+    ds = _dataset()
+    H, W, C = ds.images.shape[1:]
+    key = jax.random.PRNGKey(9)
+    k_ray, k_perturb, k_bg = jax.random.split(key, 3)
+    k_up, k_jit = jax.random.split(k_perturb)
+    t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
+    emap = jnp.asarray(tj.state.error_maps[1])
+    k1, k2 = jax.random.split(k_ray)
+    draws = ttrain.StepDraws(
+        idx=1, rays=trays.RayDraws(
+            bins=t(jax.random.categorical(k1, jnp.log(emap + 1e-8), shape=(N_RAYS,))).long(),
+            jitter=t(jax.random.uniform(k2, (N_RAYS, 2)))),
+        bg=t(jax.random.uniform(k_bg, (N_RAYS, 3))),
+        jitter=t(jax.random.uniform(k_jit, (N_RAYS, 16))),
+        u=(t(jax.random.uniform(jax.random.split(k_up)[1], (N_RAYS, upsample)))
+           if upsample else None))
+    assert tt.draw_step(tt.state, 0, H, W).jitter.shape == (N_RAYS, 16)
+    step_j = tj._build_train_step(H, W, C, 1, None)
+    sj, loss_j = step_j(tj.state, {k: jnp.asarray(v) for k, v in ds.as_arrays().items()},
+                        jnp.asarray(1), key)
+    arrays_t = tt._device_arrays(ds)
+    out = tt.loss_and_grads(tt.state, arrays_t, draws)
+    tt.apply(tt.state, out, draws.idx, H, W)
+    np.testing.assert_allclose(float(out.loss), float(loss_j), rtol=1e-5)
+    assert out.n_samples is None and tt.state.mean_count is None
+    np.testing.assert_allclose(tt.state.error_maps.numpy(), np.asarray(sj.error_maps),
+                               rtol=0, atol=1e-6)
+    mu_j = [np.asarray(m) for m in jax.tree_util.tree_leaves(sj.opt_state[0].mu)]
+    _grads_close([0.1 * g.numpy() for g in out.grads], mu_j, 1e-5)
+
+
 def test_adam_and_schedule_match_optax(tmp_path):
     """Three Adam steps from the same numpy gradients against the JAX
     Trainer's optax chain (schedule at the pre-increment count): params
@@ -340,7 +392,7 @@ def test_train_loop_and_evaluate(tmp_path):
     and 16 (full, then partial after n_full_updates), the budget picked from
     the mean count, a checkpoint per epoch, a finite falling-or-flat loss;
     evaluate gives a PSNR with the EMA params. scan_steps runs the same
-    number of steps."""
+    number of steps. test writes each frame and its depth map."""
     _, tt = _trainers(tmp_path, update_extra_interval=8, error_map=True)
     tt.occupancy_cfg = dataclasses.replace(tt.occupancy_cfg, n_full_updates=2)
     tt.set_occupancy(tt.state.occupancy)
@@ -357,7 +409,9 @@ def test_train_loop_and_evaluate(tmp_path):
     tt.opt.scan_steps = 4
     tt.train(ds, max_epochs=1, steps_per_epoch=10)
     assert tt.global_step == 30 and len(tt.stats["loss"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tt.test(ds)
+    frames = tt.test(_dataset(n=2, channels=3, seed=6), write_video=False)
+    assert len(frames) == 2 and frames[0].shape == (HW, HW, 3)
+    assert sorted(os.listdir(os.path.join(tt.workspace, "results"))) == [
+        "t_0000.png", "t_0000_depth.png", "t_0001.png", "t_0001_depth.png"]
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tt.save_mesh()
