@@ -72,7 +72,9 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    "backend (tinycudann is not a dependency of this port)")
     # dataset
     p.add_argument("--color_space", type=str, default="srgb")
-    p.add_argument("--preload", action="store_true")
+    p.add_argument("--preload", action="store_true",
+                   help="accepted for command-line parity; has no effect (the "
+                   "trainer always moves the images to the device once)")
     p.add_argument("--bound", type=float, default=2.0)
     p.add_argument("--scale", type=float, default=0.33)
     p.add_argument("--offset", type=float, nargs=3, default=[0.0, 0.0, 0.0])

@@ -33,8 +33,8 @@ def make_trainer(opt):
     cfg, rcfg, occ_cfg, march_cfg = make_configs(opt, for_nav=False)
     ds_opt = DatasetOptions(
         path=opt.path, scale=opt.scale, offset=tuple(opt.offset),
-        color_space=opt.color_space, downscale=opt.downscale, preload=opt.preload,
-        fp16=opt.fp16, num_rays=opt.num_rays, error_map=opt.error_map)
+        color_space=opt.color_space, downscale=opt.downscale, fp16=opt.fp16,
+        error_map=opt.error_map)
     topt = TrainerOptions(
         name="ngp", workspace=opt.workspace, lr=opt.lr, iters=opt.iters,
         lr_iters=opt.lr_iters, num_rays=opt.num_rays, use_checkpoint=opt.ckpt,

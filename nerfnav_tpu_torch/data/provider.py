@@ -109,18 +109,15 @@ def write_image(path: str, img: np.ndarray):
 
 @dataclass
 class DatasetOptions:
-    """The flags the provider reads (main_nerf's dataset flags)."""
+    """The flags the provider reads (main_nerf's dataset flags). The layout
+    (blender or colmap) is detected from the files."""
 
     path: str = ""
-    mode: str = "colmap"  # "colmap" | "blender", detected from the files
     scale: float = 0.33
     offset: tuple = (0.0, 0.0, 0.0)
     color_space: str = "srgb"  # "srgb" | "linear"
     downscale: int = 1
-    preload: bool = True
     fp16: bool = False
-    num_rays: int = 4096
-    rand_pose: int = -1
     error_map: bool = False
 
 

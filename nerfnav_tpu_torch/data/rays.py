@@ -94,6 +94,15 @@ def get_all_rays(pose, intrinsics, H, W, offset=None):
     return _to_world(_pixel_dirs(i, j, intrinsics), pose)
 
 
+def get_padded_rays(pose, intrinsics, H, W, chunk, offset=None):
+    """get_all_rays as (rays_o, rays_d), padded to a whole number of
+    `chunk`-ray chunks with rays from the origin along (1, 1, 1)."""
+    r = get_all_rays(pose, intrinsics, H, W, offset=offset)
+    pad = (-H * W) % chunk
+    return (torch.cat([r["rays_o"], torch.zeros((pad, 3), device=pose.device)]),
+            torch.cat([r["rays_d"], torch.ones((pad, 3), device=pose.device)]))
+
+
 def rays_from_pixels(pose, intrinsics, i, j, offset=None):
     """Rays for explicit pixel coordinates i (x), j (y), flat (N,) float32."""
     if offset is not None:

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from nerfnav_tpu_torch.data.provider import ngp_to_nerf_matrix, rand_poses, write_image
-from nerfnav_tpu_torch.data.rays import get_all_rays
+from nerfnav_tpu_torch.data.rays import get_padded_rays
 from nerfnav_tpu_torch.device import device_const, resolve_device
 from nerfnav_tpu_torch.models.renderer import Field, RenderConfig, render_rays
 
@@ -122,15 +122,12 @@ def make_synthetic_scene(out_dir: str, field: Field = None, n_train: int = 12,
     os.makedirs(out_dir, exist_ok=True)
     n_r = H * W
     chunk = min(n_r, 65536)
-    pad = (-n_r) % chunk
 
     @torch.no_grad()
     def render_frame(pose):
-        rays = get_all_rays(torch.as_tensor(pose, device=dev), intr, H, W)
-        ro = torch.cat([rays["rays_o"], torch.zeros((pad, 3), device=dev)])
-        rd = torch.cat([rays["rays_d"], torch.ones((pad, 3), device=dev)])
+        ro, rd = get_padded_rays(torch.as_tensor(pose, device=dev), intr, H, W, chunk)
         imgs, ws = [], []
-        for s in range(0, n_r + pad, chunk):
+        for s in range(0, ro.shape[0], chunk):
             out = render_rays(field, rcfg, ro[s:s + chunk], rd[s:s + chunk], bg_color=0.0)
             imgs.append(out["image"])
             ws.append(out["weights_sum"])

@@ -40,7 +40,7 @@ import torch
 
 from nerfnav_tpu_torch.data.provider import write_image
 from nerfnav_tpu_torch.data.rays import (
-    EMAP_SIDE, RayDraws, draw_rays, get_all_rays, get_rays, rays_from_pixels, tile_order,
+    EMAP_SIDE, RayDraws, draw_rays, get_padded_rays, get_rays, rays_from_pixels, tile_order,
 )
 from nerfnav_tpu_torch.device import resolve_device, unported
 from nerfnav_tpu_torch.models.network import NetworkConfig, init_network
@@ -619,28 +619,38 @@ class Trainer:
         self._ladder_plan = (self._occ_version, plan)
         return plan
 
-    def _chunk_renderer(self, t_a0=0, beam: int = 0):
-        """The eval chunk renderer: the rounds renderer on a planned ladder
-        (0 = auto) and beam width (0 = the march config's own), the one-shot
-        grid render (eval_rounds=False), or the dense render_rays when there
-        is no occupancy grid (reference trainer.py:646-723)."""
+    def _frame_march(self, intrinsics, H, W, rd):
+        """The march config and occupancy that render_full's chunks march
+        with for one frame's rays rd: the eval trims and, on the rounds path,
+        the ladder planned from the occupancy and the frame's beam with its
+        dilated coarse table. (None, occupancy) without an occupancy grid."""
+        mcfg, occupancy = self._eval_march_cfg(), self.occupancy
+        if mcfg is None or not self.opt.eval_rounds:
+            return mcfg, occupancy
+        mcfg = self._apply_ladder_plan(mcfg, self._planned_ladder(occupancy))
+        bm = self._frame_beam(intrinsics, H, W, rd)
+        if bm > 1:
+            mcfg, occupancy = replace(mcfg, beam=bm), self._beamed_occupancy(occupancy)
+        return mcfg, occupancy
+
+    def _chunk_renderer(self, mcfg):
+        """The eval chunk renderer on march config mcfg: the rounds renderer,
+        the one-shot grid render (eval_rounds=False), or the dense
+        render_rays when mcfg is None (no occupancy grid; reference
+        trainer.py:646-723)."""
         cfg, rcfg = self.cfg, self.rcfg
-        mcfg = self._eval_march_cfg()
         if mcfg is None:
             def render_dense(params, occupancy, rays_o, rays_d, bg_color, crop_aabb=None):
                 return render_rays(make_field(params, cfg), rcfg, rays_o, rays_d,
                                    bg_color=bg_color, crop_aabb=crop_aabb)
 
             return render_dense
-        if beam and beam > 1:
-            mcfg = replace(mcfg, beam=beam)
         if not self.opt.eval_rounds:
             def render_grid(params, occupancy, rays_o, rays_d, bg_color, crop_aabb=None):
                 return render_rays_grid(make_field(params, cfg), occupancy, mcfg, rays_o,
                                         rays_d, bg_color=bg_color, crop_aabb=crop_aabb)
 
             return render_grid
-        mcfg = self._apply_ladder_plan(mcfg, t_a0)
         shade_order = self.opt.shade_order
 
         def render_chunk(params, occupancy, rays_o, rays_d, bg_color, crop_aabb=None):
@@ -664,10 +674,7 @@ class Trainer:
             tc = self._tile_layout(H, W, chunk)
             r = rays_from_pixels(pose, intrinsics, tc["i"], tc["j"], offset=offset)
             return r["rays_o"], r["rays_d"], tc["inv"]
-        r = get_all_rays(pose, intrinsics, H, W, offset=offset)
-        pad = (-H * W) % chunk
-        ro = torch.cat([r["rays_o"], torch.zeros((pad, 3), device=self.device)])
-        rd = torch.cat([r["rays_d"], torch.ones((pad, 3), device=self.device)])
+        ro, rd = get_padded_rays(pose, intrinsics, H, W, chunk, offset=offset)
         return ro, rd, None
 
     def _frame_beam(self, intrinsics, H, W, rd) -> int:
@@ -710,7 +717,6 @@ class Trainer:
                          and occupancy.get("blocks_coarse") is not None):
             raise unported("rendering without block occupancy tables "
                            "(byte-bitfield marchers)", "A6")
-        use_tiles = grid and self.opt.eval_rounds
         with torch.no_grad():
             if self.opt.eval_table_dtype != "float32":
                 params = self._cast_eval_tables(params)
@@ -720,12 +726,9 @@ class Trainer:
             n = H * W
             chunk = self.rcfg.max_ray_batch
             ro, rd, inv = self._frame_rays(pose, intrinsics, H, W, chunk, pixel_offset,
-                                           tiles=use_tiles)
-            t_a0 = self._planned_ladder(occupancy)
-            bm = self._frame_beam(intrinsics, H, W, rd) if use_tiles else 0
-            if bm > 1:
-                occupancy = self._beamed_occupancy(occupancy)
-            render_chunk = self._chunk_renderer(t_a0, bm)
+                                           tiles=grid and self.opt.eval_rounds)
+            mcfg, occupancy = self._frame_march(intrinsics, H, W, rd)
+            render_chunk = self._chunk_renderer(mcfg)
             imgs, depths = [], []
             for i in range(0, ro.shape[0], chunk):
                 out = render_chunk(params, occupancy, ro[i : i + chunk],
