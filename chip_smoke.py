@@ -9,12 +9,14 @@
    together).
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes (the eval round's, a grid train step's and a
-   dense train step's, 4096 rays x 512 samples), ragged ones and the edges
+   dense train step's, 4096 rays x 512 samples; the background net's
+   24-64-3 at one 4096-ray chunk and one ragged N), ragged ones and the edges
    of the kernel's contract (fused MLP: atol = rtol = 2e-2, the bound
    tests/test_fused_mlp.py uses; hidden activations are re-rounded to bf16, so a different f32
    summation order can move one by a bf16 step), then timed with CUDA events
    beside the plain version and a library call, at the main path's N and at
-   8 x N. With --kernels-only the script stops here, with no result line.
+   8 x N, and the background net's at N = 4096. With --kernels-only the
+   script stops here, with no result line.
 3. Slice phase: the -O --ff eval render, Trainer.render_full of one 800x800
    frame of the flagship field (cell hash grid 4x8 @ 2^17, fused MLPs,
    bound 2, K 32, bf16 tables, AUTO beam) over the synthetic shell + floor
@@ -107,7 +109,27 @@
    Prints both paths' ms per step (with a profiled step's idle share) and
    per 800x800 frame, their fused launches per step and per frame, and the
    phase-A candidates per ray of the gamma ladder and the dt_gamma=0 one.
-7. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+7. Background phase, the background network for unbounded scenes through
+   cli/main_nerf.py at full width (`--cuda_ray --ff --bg_radius 32
+   --grid_coord_convention ngp`: the reference-exact network on torch-ngp's
+   lattice, f32 masters, bound 1, 4096 rays, grid 128, dt_gamma 1/128, and
+   the bg net's 2-D grid 4x2 @ 2^19 with its 24-64-3 fused MLP). The script
+   writes its own RGB scene under build/ (the analytic sphere in front of an
+   analytic sky painted on the radius-32 sphere, 8 train and 1 val views at
+   800x800); main_nerf.main trains 200 steps. Checks: the val PSNR gains
+   BG_PSNR_GAIN dB over the untrained field and beats the same render with
+   the bg net swapped for white by BG_WHITE_GAIN dB; 3 fused launches a
+   step, 1 of them the bg net's; card vs CPU from CPU-made rays:
+   sph_from_ray (1e-6 where |z| / R <= 0.9; nearer a pole, whose
+   coordinates are ill-conditioned in float32, 16 ulps of the acos and atan2
+   inputs times their slopes), the bg grid's features and the bg net's colour
+   (1e-5), one dense step with the bg net at 256 rays with xla fp32 MLPs
+   (loss 1e-5, gradients 1e-4); the trained checkpoint out through
+   scripts/export_torch_ckpt.py and back through scripts/import_torch_ckpt.py
+   (params bit-equal, bitfields and blocks equal, a 64x64 crop within 1e-6).
+   Prints step ms (with a profiled step's idle share), the 800x800 frame's
+   ms, the fused and bg launches per step and per frame, the phase's s.
+8. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -129,7 +151,11 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor cores, H100 SXM data sheet
 MLP_TOL = 2e-2
 ACTIVATIONS = ["relu", "none", "exp", "sigmoid", "sine", "squareplus", "softplus"]
-MLP_SHAPES = {"sigma": [32, 64, 16], "color": [31, 64, 64, 3]}
+MLP_SHAPES = {"sigma": [32, 64, 16], "color": [31, 64, 64, 3], "bg": [24, 64, 3]}
+# the shapes one shaded eval round launches (the fused_mlp entry's times);
+# the background net runs once per 4096-ray chunk or train step instead
+ROUND_SHAPES = ("sigma", "color")
+BG_N = 4096
 # edges of the fused MLP's contract (1-8 layers, widths 1-256, any N):
 # name -> (dims, rows); plus the color net at COLOR_EDGE_ROWS rows
 MLP_EDGES = {"8x128": ([128] * 9, 1000), "3-256-256-1": ([3, 256, 256, 1], 1000),
@@ -246,6 +272,14 @@ def kernel_phase(device, n_full, n_dense, timer):
         # a dense step's N (4096 rays x 512 samples at full size)
         x = torch.randn((n_dense, dims[0]), generator=gen).to(device)
         compare(x, ws, "relu", "none", f"{name} N={n_dense} (dense step), f32 weights")
+    # the background net's N: one 4096-ray chunk or train step, and a ragged
+    # one, with the bf16 weights of the eval cast and the f32 masters
+    dims = MLP_SHAPES["bg"]
+    ws = mlp_weights(dims, gen, device)
+    for n in (BG_N, BG_N + 1):
+        x = torch.randn((n, dims[0]), generator=gen).to(device)
+        compare(x, ws, "relu", "none", f"bg N={n}, f32 weights")
+        compare(x, [w.to(torch.bfloat16) for w in ws], "relu", "none", f"bg N={n}, bf16 weights")
     # the contract's edges: depth, width, narrow nets, ragged tiles, and x
     # that starts one row (124 bytes) into its buffer
     for name, (dims, n) in MLP_EDGES.items():
@@ -273,22 +307,26 @@ def kernel_phase(device, n_full, n_dense, timer):
     # the launch and the first loads no longer dominate
     per_shape = time_shapes(n_full, gen, device, timer)
     big = time_shapes(8 * n_full, gen, device, timer)
-    for n, shapes in ((n_full, per_shape), (8 * n_full, big)):
+    bg = time_shapes(BG_N, gen, device, timer, ("bg",))["bg"]
+    for n, shapes in ((n_full, per_shape), (8 * n_full, big), (BG_N, {"bg": bg})):
         log("fused_mlp per shape at N =", n, json.dumps(shapes))
     total = {k: sum(v[k] for v in per_shape.values())
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    bound_by = {mlp_bound_ms(n_full, d)[1] for d in MLP_SHAPES.values()}
+    bound_by = {mlp_bound_ms(n_full, MLP_SHAPES[k])[1] for k in ROUND_SHAPES}
     return {**total, "max_abs_err": max_err,
-            "bound_by": "bytes" if bound_by == {"bytes"} else "operations"}
+            "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+            **{f"bg_{k}": bg[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "bg_bound_by": mlp_bound_ms(BG_N, MLP_SHAPES["bg"])[1]}
 
 
-def time_shapes(n, gen, device, timer):
+def time_shapes(n, gen, device, timer, names=ROUND_SHAPES):
     """Kernel, plain version and bf16 torch.matmul chain at N = n rows for
-    each main-path shape; with the bound and the kernel's share of it."""
+    each named shape; with the bound and the kernel's share of it."""
     from nerfnav_tpu_torch.ops import fused_mlp as fm
 
     out = {}
-    for name, dims in MLP_SHAPES.items():
+    for name in names:
+        dims = MLP_SHAPES[name]
         # bf16 weights, as Trainer._cast_eval_tables hands them to the kernel
         wb = [w.to(torch.bfloat16) for w in mlp_weights(dims, gen, device)]
         x = torch.randn((n, dims[0]), generator=gen).to(device)
@@ -1362,10 +1400,10 @@ REF_SIZES = {
 }
 
 
-def ref_args(ref, ws, device, *mode):
-    """main_nerf's argv for the synthetic scene under REF_DIR."""
-    return [os.path.join(REF_DIR, "scene"), *mode, "--bound", "1.0", "--scale", "1.0",
-            "--workspace", os.path.join(REF_DIR, ws), "--device", str(device),
+def ref_args(ref, ws, device, *mode, root=REF_DIR):
+    """main_nerf's argv for the synthetic scene under root (REF_DIR)."""
+    return [os.path.join(root, "scene"), *mode, "--bound", "1.0", "--scale", "1.0",
+            "--workspace", os.path.join(root, ws), "--device", str(device),
             *ref["flags"]]
 
 
@@ -1373,14 +1411,14 @@ def ref_trainer(argv):
     """The Trainer main_nerf builds for an argv, and the scene's val split."""
     from nerfnav_tpu_torch.cli import flags, main_nerf
 
-    tr, _ = main_nerf.make_trainer(flags.build_parser("chip_smoke").parse_args(argv))
-    return tr, ref_split("val")
+    tr, ds_opt = main_nerf.make_trainer(flags.build_parser("chip_smoke").parse_args(argv))
+    return tr, ref_split("val", os.path.dirname(ds_opt.path))
 
 
-def ref_split(split):
+def ref_split(split, root=REF_DIR):
     from nerfnav_tpu_torch.data.provider import DatasetOptions, NeRFDataset
 
-    return NeRFDataset(DatasetOptions(path=os.path.join(REF_DIR, "scene"), scale=1.0), split)
+    return NeRFDataset(DatasetOptions(path=os.path.join(root, "scene"), scale=1.0), split)
 
 
 def timed_steps(tr, ds, n, device):
@@ -1409,10 +1447,12 @@ def timed_steps(tr, ds, n, device):
 class FrameClock:
     """Inside the block, times every Trainer.render_full call (between two
     synchronizations; the callers read the frame back anyway) and counts
-    its fused launches."""
+    its fused launches, and the background net's where a BgLaunches
+    counter is given."""
 
-    def __init__(self, device):
+    def __init__(self, device, bg=None):
         self.device, self.ms, self.launches = device, [], []
+        self.bg, self.bg_launches = bg, []
 
     def __enter__(self):
         from nerfnav_tpu_torch.ops import fused_mlp as fm
@@ -1422,11 +1462,14 @@ class FrameClock:
 
         def timed(tr, *a, **k):
             sync(self.device)
+            bg_before = self.bg.launches if self.bg else 0
             before, t0 = fm.fused_mlp.launches, time.perf_counter()
             out = render_full(tr, *a, **k)
             sync(self.device)
             self.ms.append((time.perf_counter() - t0) * 1e3)
             self.launches.append(fm.fused_mlp.launches - before)
+            if self.bg:
+                self.bg_launches.append(self.bg.launches - bg_before)
             return out
 
         Trainer.render_full = timed
@@ -1438,7 +1481,36 @@ class FrameClock:
         Trainer.render_full = self._render_full
 
     def summary(self):
-        return {"frame_ms": self.ms, "fused_launches_per_frame": self.launches}
+        out = {"frame_ms": self.ms, "fused_launches_per_frame": self.launches}
+        if self.bg:
+            out["bg_launches_per_frame"] = self.bg_launches
+        return out
+
+
+class BgLaunches:
+    """Inside the block, counts the fused launches made inside
+    models/network.py::background, the background net's."""
+
+    def __enter__(self):
+        from nerfnav_tpu_torch.models import network as net
+        from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+        self.launches = 0
+        background = self._background = net.background
+
+        def counted(*a, **k):
+            before = fm.fused_mlp.launches
+            out = background(*a, **k)
+            self.launches += fm.fused_mlp.launches - before
+            return out
+
+        net.background = counted
+        return self
+
+    def __exit__(self, *exc):
+        from nerfnav_tpu_torch.models import network as net
+
+        net.background = self._background
 
 
 def results_written(ws):
@@ -1513,31 +1585,40 @@ def crop_march_vs_cpu(tr, ds, ref, device):
 REF_DENSE_CHECK_IMAGES = (1, 4, 6)
 
 
-def dense_step_vs_cpu(ref, device):
+def dense_step_vs_cpu(ref, device, root=REF_DIR, extra=(), images=REF_DENSE_CHECK_IMAGES):
     """One dense train step of the reference network at 256 rays with xla
     fp32 MLPs, this device against the CPU port from the same params (the
-    seed's), targets, draws and rays, on three batches; the first batch
-    runs twice on this device, so its own run-to-run spread (the atomic
-    adds of index_add_) prints beside the CPU's. The rays are made on the
-    CPU for both: a ray one float32 step off (the card's 3x3 matmul in
-    get_rays) moves the fine hash levels' table gradients by 1e-3 to 7e-3
-    relative (measured on the CPU), because a trilinear weight moves by
-    the level's resolution times the shift."""
+    seed's), targets, draws and rays, on the train images `images` (the
+    scene under root, with the extra flags); the first batch runs twice on
+    this device, so its own run-to-run spread (the atomic adds of
+    index_add_) prints beside the CPU's. The rays, and a background
+    network's sphere coordinates, are made on the CPU for both: a ray one
+    float32 step off (the card's 3x3 matmul in get_rays) moves the fine hash
+    levels' table gradients by 1e-3 to 7e-3 relative (measured on the CPU),
+    because a trilinear weight moves by the level's resolution times the
+    shift, and the background grid's finest level has 2048 cells a side
+    (the card's atan2 and acos may end an ulp off the CPU's;
+    sph_vs_cpu holds them within 1e-6)."""
+    from nerfnav_tpu_torch.models import renderer as renderer_mod
     from nerfnav_tpu_torch.training import trainer as trainer_mod
 
     cpu = torch.device("cpu")
-    argv = ("--num_rays", "256", "--ckpt", "scratch")
-    tr_c, _ = ref_trainer(ref_args(ref, "step_cpu", cpu, *argv))
-    tr_d, _ = ref_trainer(ref_args(ref, "step_dev", device, *argv))
+    argv = ("--num_rays", "256", "--ckpt", "scratch", *extra)
+    tr_c, _ = ref_trainer(ref_args(ref, "step_cpu", cpu, *argv, root=root))
+    tr_d, _ = ref_trainer(ref_args(ref, "step_dev", device, *argv, root=root))
     # the gradients' order: the params' sorted keys (trainer._leaves)
     names = [f"{k}[{i}]" for k in sorted(tr_c.state.params)
              for i in range(len(tr_c.state.params[k]))]
-    ds = ref_split("train")
+    ds = ref_split("train", root)
     arrays_c, arrays_d = tr_c._device_arrays(ds), tr_d._device_arrays(ds)
     to = lambda t: None if t is None else t.to(device)  # noqa: E731
-    get_rays = trainer_mod.get_rays
+    get_rays, sph_from_ray = trainer_mod.get_rays, renderer_mod.sph_from_ray
+
+    def cpu_sph(rays_o, rays_d, radius):
+        return sph_from_ray(rays_o.cpu(), rays_d.cpu(), radius).to(rays_o.device)
+
     rows, loss_rels, grad_rels = [], [], []
-    for b, img in enumerate(REF_DENSE_CHECK_IMAGES):
+    for b, img in enumerate(images):
         draws = tr_c.draw_step(tr_c.state, img, ds.H, ds.W)
         draws_d = draws._replace(rays=draws.rays._replace(inds=to(draws.rays.inds)),
                                  bg=to(draws.bg), jitter=to(draws.jitter), u=to(draws.u))
@@ -1547,12 +1628,12 @@ def dense_step_vs_cpu(ref, device):
             r = get_rays(pose.cpu(), intrinsics.cpu(), H, W, rays, None)
             return {k: v.to(pose.device) for k, v in r.items()}
 
-        trainer_mod.get_rays = cpu_rays
+        trainer_mod.get_rays, renderer_mod.sph_from_ray = cpu_rays, cpu_sph
         try:
             got = [tr_d.loss_and_grads(tr_d.state, arrays_d, draws_d)
                    for _ in range(2 if b == 0 else 1)]
         finally:
-            trainer_mod.get_rays = get_rays
+            trainer_mod.get_rays, renderer_mod.sph_from_ray = get_rays, sph_from_ray
         loss_rel = abs(float(got[0].loss) - float(want.loss)) / abs(float(want.loss))
         errs = [rel_l2(a.cpu(), w) for a, w in zip(got[0].grads, want.grads)]
         worst = int(np.argmax(errs))
@@ -1566,8 +1647,8 @@ def dense_step_vs_cpu(ref, device):
         rows.append(row)
         loss_rels.append(loss_rel)
         grad_rels.append(errs[worst])
-    log("one dense step at 256 rays (reference network, xla fp32 MLPs), this device vs "
-        "the CPU port:", json.dumps({
+    log(f"one dense step at 256 rays ({os.path.basename(root)}, xla fp32 MLPs), this "
+        "device vs the CPU port:", json.dumps({
             "samples_per_ray": tr_c.rcfg.num_steps, "leaves": names,
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "float32_matmul_precision": torch.get_float32_matmul_precision(),
@@ -1711,6 +1792,269 @@ def reference_phase(device, sizes, card):
             "ref_dense_launches_per_frame": dense_t["fused_launches_per_frame"]}
 
 
+# ----------------------------------------------------------- background phase
+BG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_bg")
+BG_RADIUS = 32.0
+# the val PSNR the run must gain over the untrained field (whose random bg
+# net paints a grey sky), and the trained render's margin over the same
+# render with its bg net swapped for white, in dB
+BG_PSNR_GAIN = 4.0
+BG_WHITE_GAIN = 2.0
+# the reference-exact network with torch-ngp's lattice at full width on the
+# card, toy widths for the rehearsal; depth is cut in steps only
+BG_SIZES = {"card": {"hw": 800, "iters": 200, "timed": 8, "flags": []},
+            "rehearsal": {"hw": 32, "iters": 200, "timed": 2,
+                          "flags": REF_SIZES["rehearsal"]["flags"]}}
+BG_MODE = ("--cuda_ray", "--ff", "--bg_radius", str(BG_RADIUS),
+           "--grid_coord_convention", "ngp")
+
+
+def sky(sph, d):
+    """The scene's sky, painted on the background sphere: a blue far from
+    the grey an untrained bg net paints, smooth in the sphere coordinates
+    (u, v) in [-1, 1]^2, continuous across the azimuth seam (u = +-1) and at
+    the poles (v = +-1)."""
+    u, v = sph[:, 0] * math.pi, sph[:, 1] * math.pi
+    return torch.stack([0.2 + 0.15 * torch.sin(u) * torch.cos(0.5 * v),
+                        0.5 + 0.2 * torch.cos(v),
+                        0.85 + 0.1 * torch.cos(u) * torch.cos(0.5 * v)], dim=-1)
+
+
+def write_bg_scene(root, hw, device):
+    """A blender-layout RGB scene (3-channel PNGs, no alpha) under
+    root/scene: the analytic sphere of make_synthetic_scene in front of
+    `sky` on the sphere of radius BG_RADIUS, rendered by the dense
+    render_rays (128 samples), 8 train and 1 val views on make_synthetic_scene's
+    orbit (radius 1.8, fov 0.9, seed REF_SCENE_SEED)."""
+    from nerfnav_tpu_torch.data.provider import ngp_to_nerf_matrix, rand_poses, write_image
+    from nerfnav_tpu_torch.data.rays import get_padded_rays
+    from nerfnav_tpu_torch.data.synthetic import sphere_field
+    from nerfnav_tpu_torch.models.renderer import RenderConfig, render_rays
+
+    field = sphere_field()._replace(bg_fn=sky, bg_radius=BG_RADIUS)
+    fov_x = 0.9
+    fx = hw / (2 * np.tan(fov_x / 2))
+    intr = torch.tensor([fx, fx, hw / 2, hw / 2], dtype=torch.float32, device=device)
+    rcfg = RenderConfig(num_steps=128, upsample_steps=0, min_near=0.05)
+    rng = np.random.default_rng(REF_SCENE_SEED)
+    chunk = min(hw * hw, 65536)
+    scene = os.path.join(root, "scene")
+    os.makedirs(scene)
+    for split, n in (("train", 8), ("val", 1)):
+        frames = []
+        for i, pose in enumerate(rand_poses(rng, n, radius=1.8)):
+            with torch.no_grad():
+                ro, rd = get_padded_rays(torch.as_tensor(pose, device=device), intr, hw, hw,
+                                         chunk)
+                img = torch.cat([render_rays(field, rcfg, ro[j:j + chunk],
+                                             rd[j:j + chunk])["image"]
+                                 for j in range(0, ro.shape[0], chunk)])[:hw * hw]
+            fname = f"{split}_{i:03d}.png"
+            write_image(os.path.join(scene, fname),
+                        (np.clip(img.reshape(hw, hw, 3).cpu().numpy(), 0, 1) * 255)
+                        .astype(np.uint8))
+            frames.append({"file_path": fname,
+                           "transform_matrix": ngp_to_nerf_matrix(pose, 1.0).tolist()})
+        with open(os.path.join(scene, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": fov_x, "frames": frames, "h": hw, "w": hw}, f)
+
+
+def white_bg_psnr(tr, ds):
+    """The val PSNR of the trained field's EMA params with its bg net
+    swapped for white (Field._replace(bg_fn=None), bg_color 1)."""
+    from nerfnav_tpu_torch.training import trainer as trainer_mod
+    from nerfnav_tpu_torch.training.metrics import PSNRMeter
+
+    make_field = trainer_mod.make_field
+    trainer_mod.make_field = lambda p, c: make_field(p, c)._replace(bg_fn=None)
+    meter, arrays = PSNRMeter(), ds.as_arrays()
+    try:
+        for i in range(len(ds)):
+            img, _ = tr.render_full(tr.state.ema_params, arrays["poses"][i],
+                                    arrays["intrinsics"], ds.H, ds.W, bg_color=1.0)
+            meter.update(img.cpu().numpy(), np.asarray(arrays["images"][i])[..., :3])
+    finally:
+        trainer_mod.make_field = make_field
+    return meter.measure()
+
+
+# sph_from_ray card vs CPU: 1e-6 where both coordinates are well
+# conditioned (|z| / R <= SPH_WELL_CONDITIONED); nearer a pole, where acos and
+# atan2 have unbounded slopes, 1e-6 plus SPH_ULPS float32 ulps of their
+# inputs times those slopes
+SPH_WELL_CONDITIONED = 0.9
+SPH_ULPS = 16
+
+
+def sph_bound(ro, rd, radius):
+    """Per-ray bounds (N, 2) on |u_a - u_b| and |v_a - v_b| of two float32
+    evaluations of sph_from_ray, from the float64 exit point p: the acos
+    input x = p_z / R moves v by (2 / pi) / sqrt(1 - x^2) per unit, and the
+    atan2 angle moves by 1 / r per unit of p / R off axis, r = |p_xy| / R,
+    so u by (1 / pi) / r. An input near 1 has a float32 ulp of 2^-24 (the
+    ulp of one side of 1, the smaller)."""
+    o, d = ro.double(), rd.double()
+    b, c = (o * d).sum(-1), (o * o).sum(-1) - radius * radius
+    d2 = (d * d).sum(-1)
+    p = (o + ((-b + torch.sqrt(b * b - d2 * c)) / d2)[:, None] * d) / radius
+    x = p[:, 2].clamp(-1.0, 1.0)
+    r = torch.sqrt(p[:, 0] ** 2 + p[:, 1] ** 2).clamp(min=2.0**-24)
+    ulps = SPH_ULPS * 2.0**-24
+    du = ulps / (math.pi * r)
+    dv = 2.0 / math.pi * ulps / torch.sqrt((1.0 - x * x).clamp(min=2.0**-48))
+    return 1e-6 + torch.stack([du, dv], dim=-1), x.abs() <= SPH_WELL_CONDITIONED
+
+
+def sph_vs_cpu(tr, ds, device):
+    """Every ray of val view 0 (made on the CPU; it sees the zenith) plus
+    rays that leave the sphere at the azimuth seam and the poles:
+    sph_from_ray on this device against the CPU port (sph_bound); then, from
+    the CPU's coordinates, the trained bg grid's features and the bg net's
+    colour with xla fp32 MLPs (1e-5)."""
+    import dataclasses
+
+    from nerfnav_tpu_torch.data.rays import get_padded_rays
+    from nerfnav_tpu_torch.models import network as net
+    from nerfnav_tpu_torch.models.renderer import sph_from_ray
+    from nerfnav_tpu_torch.ops.hashgrid import hash_grid_encode
+
+    cpu = torch.device("cpu")
+    ro, rd = get_padded_rays(torch.as_tensor(ds.poses[0]), torch.as_tensor(ds.intrinsics),
+                             ds.H, ds.W, 4096)
+    edge_o = torch.tensor([[0.0, 0.0, 0.0]] * 4 + [[0.3, 1e-7, 0.1], [0.3, -1e-7, 0.1]])
+    edge_d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [-1.0, 0.0, 0.2],
+                           [-1.0, -0.0, -0.2], [-1.0, 0.0, 0.0], [-1.0, 0.0, 0.0]])
+    ro, rd = torch.cat([ro, edge_o]), torch.cat([rd, edge_d])
+    cfg = dataclasses.replace(tr.cfg, mlp_backend="xla", mlp_dtype="float32")
+    params = {k: [t.detach() for t in tr.state.ema_params[k]] for k in ("bg_encoder", "bg_net")}
+    with torch.no_grad():
+        sph = [sph_from_ray(ro.to(dev), rd.to(dev), BG_RADIUS).cpu() for dev in (cpu, device)]
+        outs = []
+        for dev in (cpu, device):
+            p = {k: [t.to(dev) for t in v] for k, v in params.items()}
+            outs.append([hash_grid_encode(p["bg_encoder"], sph[0].to(dev), cfg.bg_grid).cpu(),
+                         net.background(p, sph[0].to(dev), rd.to(dev), cfg).cpu()])
+    bound, well = sph_bound(ro, rd, BG_RADIUS)
+    diff = (sph[1] - sph[0]).abs().double()
+    res = {"rays": int(ro.shape[0]), "rays_well_conditioned": int(well.sum()),
+           "sph_max_abs_well_conditioned": float(diff[well].max()),
+           "sph_max_abs": float(diff.max()),
+           "sph_max_share_of_bound": float((diff / bound).max()),
+           "sph_rays_differ": int((diff > 0).any(dim=-1).sum()),
+           "features_max_abs": float((outs[1][0] - outs[0][0]).abs().max()),
+           "colour_max_abs": float((outs[1][1] - outs[0][1]).abs().max()),
+           "edge_sph": sph[1][-6:].tolist()}
+    log("sph_from_ray and the bg net, this device vs the CPU port:", json.dumps(res))
+    check(res["sph_max_abs_well_conditioned"] <= 1e-6,
+          f"sph {res['sph_max_abs_well_conditioned']} away from the CPU port's")
+    check(res["sph_max_share_of_bound"] <= 1.0,
+          f"sph near a pole {res['sph_max_share_of_bound']} x its conditioning bound")
+    check(res["features_max_abs"] <= 1e-5, f"bg features {res['features_max_abs']} away")
+    check(res["colour_max_abs"] <= 1e-5, f"bg colour {res['colour_max_abs']} away")
+
+
+def ngp_round_trip(tr, bg, ds, device):
+    """The trained checkpoint (EMA params, density grid) out through
+    scripts/export_torch_ckpt.py and back through scripts/import_torch_ckpt.py:
+    params bit-equal, the rebuilt bitfields and block tables equal, and a
+    64x64 crop rendered from the imported file within 1e-6."""
+    from nerfnav_tpu_torch.scripts import export_torch_ckpt, import_torch_ckpt
+    from nerfnav_tpu_torch.training import checkpoint as ckpt_lib
+
+    cfg, ocfg = tr.cfg, tr.occupancy_cfg
+    src = ckpt_lib.latest_checkpoint(tr.ckpt_dir, tr.opt.name)
+    pth = os.path.join(BG_DIR, "ngp.pth")
+    npz = os.path.join(BG_DIR, "imported", "checkpoints", "ngp_ep0001.npz")
+    export_torch_ckpt.main([src, "--out", pth, "--grid_size", str(ocfg.grid_size)])
+    import_torch_ckpt.main([
+        pth, "--out", npz, "--bound", str(cfg.bound), "--grid_size", str(ocfg.grid_size),
+        "--log2_hashmap_size", str(cfg.grid_log2_hashmap_size),
+        "--desired_resolution", str(int(cfg.grid_max_resolution * cfg.bound)),
+        "--density_thresh", str(ocfg.density_thresh), "--device", str(device)])
+    got = ckpt_lib.load_checkpoint_npz(npz, device)
+    ema = tr.state.ema_params
+    params_equal = sorted(got["ema_params"]) == sorted(ema) and all(
+        torch.equal(a, b) for k in ema for a, b in zip(got["ema_params"][k], ema[k]))
+    occ_equal = {k: bool(torch.equal(got["occupancy"][k], tr.occupancy[k]))
+                 for k in ("bitfield", "bitfield_coarse", "blocks", "blocks_coarse")}
+    tr2, _ = ref_trainer(ref_args(bg, "imported", device, *BG_MODE, "--ckpt", npz, root=BG_DIR))
+    tr2._maybe_resume()
+    intr = crop_intrinsics(ds)
+    a, _ = tr.render_full(ema, ds.poses[0], intr, 64, 64)
+    b, _ = tr2.render_full(tr2.state.ema_params, ds.poses[0], intr, 64, 64)
+    err = float((a - b).abs().max())
+    log("torch-ngp round trip:", json.dumps({
+        "pth_mb": os.path.getsize(pth) / 2**20, "params_bit_equal": params_equal,
+        "occupancy_equal": occ_equal, "crop_max_abs": err}))
+    check(params_equal, "the imported params differ from the exported ones")
+    check(all(occ_equal.values()), f"rebuilt occupancy differs: {occ_equal}")
+    check(err <= 1e-6, f"the imported field renders {err} away")
+
+
+def bg_phase(device, sizes, card):
+    """The background network for unbounded scenes through main_nerf (see
+    the module docstring). Returns the bg net's launches per step and per
+    frame."""
+    from nerfnav_tpu_torch.cli import main_nerf
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    bg = sizes["bg"]
+    hw = bg["hw"]
+    shutil.rmtree(BG_DIR, ignore_errors=True)
+    phase_t0 = t0 = time.perf_counter()
+    write_bg_scene(BG_DIR, hw, device)
+    sync(device)
+    log(f"background phase: scene of 8 + 1 views at {hw}x{hw} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tr0, val = ref_trainer(ref_args(bg, "untrained", device, *BG_MODE, root=BG_DIR))
+    psnr0 = tr0.evaluate(val)
+    del tr0
+    run = ref_args(bg, "run", device, *BG_MODE, "--iters", str(bg["iters"]), root=BG_DIR)
+    fm.fused_mlp.launches = 0
+    t0 = time.perf_counter()
+    with BgLaunches() as run_bg, FrameClock(device, bg=run_bg) as frames:
+        tr = main_nerf.main(run)
+    sync(device)
+    run_s, launches = time.perf_counter() - t0, fm.fused_mlp.launches
+    psnr = tr.stats["results"][-1]
+    psnr_white = white_bg_psnr(tr, val)
+    log("background run:", json.dumps({
+        "card": card, "steps": tr.global_step, "run_s": run_s, "val_psnr_untrained": psnr0,
+        "val_psnr": psnr, "val_psnr_bg_swapped_for_white": psnr_white,
+        "loss_per_epoch": tr.stats["loss"], "fused_launches": launches,
+        "bg_net_launches": run_bg.launches, "bg_radius": tr.cfg.bg_radius,
+        "grid": [tr.cfg.grid_levels, tr.cfg.grid_level_dim, tr.cfg.grid_log2_hashmap_size,
+                 tr.cfg.grid_layout, tr.cfg.grid_coord_convention]}))
+    check(psnr >= psnr0 + BG_PSNR_GAIN,
+          f"val PSNR {psnr:.3f} is not {BG_PSNR_GAIN} dB over the untrained {psnr0:.3f}")
+    check(psnr >= psnr_white + BG_WHITE_GAIN,
+          f"val PSNR {psnr:.3f} is not {BG_WHITE_GAIN} dB over the white sky's "
+          f"{psnr_white:.3f}")
+    if device.type == "cuda":
+        check(launches > 0 and run_bg.launches > 0,
+              "the background run never launched the fused-MLP kernel for the bg net")
+    sph_vs_cpu(tr, val, device)
+    dense_step_vs_cpu(bg, device, root=BG_DIR, extra=BG_MODE[2:], images=(1,))
+    ngp_round_trip(tr, bg, val, device)
+    train_ds = ref_split("train", BG_DIR)
+    arrays = tr._device_arrays(train_ds)
+    with BgLaunches() as step_bg:
+        tr.train_step(tr.state, arrays, tr.draw_step(tr.state, 0, train_ds.H, train_ds.W))
+    del arrays
+    timing = {"card": card, **timed_steps(tr, train_ds, bg["timed"], device),
+              "bg_launches_per_step": step_bg.launches, **frames.summary()}
+    log("background timing (the frame is the run's last evaluate):", json.dumps(timing))
+    if device.type == "cuda":
+        check(timing["fused_launches_per_step"] == 3,
+              f"{timing['fused_launches_per_step']} fused launches a step, expected 3")
+        check(step_bg.launches == 1, f"{step_bg.launches} bg net launches a step, expected 1")
+    shutil.rmtree(BG_DIR, ignore_errors=True)
+    log(f"background phase: {time.perf_counter() - phase_t0:.1f} s")
+    return {"bg_launches_per_step": step_bg.launches,
+            "bg_launches_per_frame": timing["bg_launches_per_frame"],
+            "bg_grid_launches_per_step": timing["fused_launches_per_step"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1724,14 +2068,14 @@ def main():
         device = torch.device("cpu")
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
                  "rays": 512, "nav": NAV_SIZES["rehearsal"], "ref": REF_SIZES["rehearsal"],
-                 "dense_n": 256 * 32}
+                 "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32}
     else:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
         device = torch.device("cuda")
         sizes = {"hw": 800, "grid": 128, "log2": 17, "frames": 3, "mlp_n": 32768,
                  "rays": 4096, "nav": NAV_SIZES["card"], "ref": REF_SIZES["card"],
-                 "dense_n": 4096 * 512}
+                 "bg": BG_SIZES["card"], "dense_n": 4096 * 512}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
@@ -1756,6 +2100,7 @@ def main():
     train_launches = training_phase(device, sizes, card)
     nav_launches = nav_phase(device, sizes, card)
     ref_launches = reference_phase(device, sizes, card)
+    bg_launches = bg_phase(device, sizes, card)
     entry = {"name": "fused_mlp", "route": "cuda",
              "source": "nerfnav_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "nerfnav_tpu/ops/fused_mlp.py:58",
@@ -1763,7 +2108,8 @@ def main():
              "ms": mlp["ms"], "plain_ms": mlp["plain_ms"],
              "bound_ms": mlp["bound_ms"], "bound_by": mlp["bound_by"],
              "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches,
-             "nav_launches": nav_launches, **ref_launches}
+             "nav_launches": nav_launches, **ref_launches,
+             **{k: v for k, v in mlp.items() if k.startswith("bg_")}, **bg_launches}
     log(json.dumps({"kernels": [entry]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)

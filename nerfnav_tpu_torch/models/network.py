@@ -1,8 +1,12 @@
-"""NeRF field networks: hash grid + SH encoders and the sigma / color MLPs.
+"""NeRF field networks: the position and direction encoders, the sigma /
+color MLPs and the optional background network.
 
 Counterpart of nerfnav_tpu/models/network.py. Params are a plain dict in the
-reference's layout: "encoder" is a list of per-level tables, "sigma_net" and
-"color_net" are lists of bias-free (in, out) weight matrices.
+reference's layout: "encoder" is a list of per-level tables (absent for a
+frequency-encoded field), "sigma_net" and "color_net" are lists of bias-free
+(in, out) weight matrices; with bg_radius > 0, "bg_encoder" holds the 2-D
+hash grid over where a ray leaves the background sphere and "bg_net" the MLP
+that gives the ray's background colour.
 
 mlp_backend "xla" is the plain torch matmul chain with the reference's
 per-layer casts; "fused" is the fused-MLP kernel (ops/fused_mlp.py).
@@ -14,9 +18,10 @@ import math
 
 import torch
 
-from nerfnav_tpu_torch.device import resolve_device, unported
+from nerfnav_tpu_torch.device import device_const, resolve_device
 from nerfnav_tpu_torch.ops import fused_mlp as _fused
 from nerfnav_tpu_torch.ops.activation import trunc_exp
+from nerfnav_tpu_torch.ops.frequency import freq_encode, freq_output_dim
 from nerfnav_tpu_torch.ops.hashgrid import HashGridConfig, hash_grid_encode, hash_grid_init
 from nerfnav_tpu_torch.ops.spherical_harmonics import sh_encode, sh_output_dim
 
@@ -67,28 +72,33 @@ class NetworkConfig:
         )
 
     @cached_property
+    def bg_grid(self) -> HashGridConfig:
+        """The background's 2-D hash grid over sphere coordinates."""
+        return HashGridConfig(
+            input_dim=2,
+            num_levels=4,
+            level_dim=2,
+            base_resolution=16,
+            log2_hashmap_size=19,
+            desired_resolution=2048,
+            coord_convention=self.grid_coord_convention,
+        )
+
+    @cached_property
     def pos_dim(self) -> int:
         if self.encoding in ("hashgrid", "tiledgrid"):
             return self.grid.output_dim
-        raise unported("frequency position encoding", "A1")
+        return freq_output_dim(3, self.freq_degree)
 
     @cached_property
     def dir_dim(self) -> int:
         if self.encoding_dir == "sphere_harmonics":
             return sh_output_dim(self.sh_degree)
-        raise unported("frequency direction encoding", "A1")
+        return freq_output_dim(3, self.freq_degree_dir)
 
     @property
     def compute_dtype(self):
         return torch.bfloat16 if self.mlp_dtype == "bfloat16" else torch.float32
-
-
-def _check_supported(cfg: NetworkConfig):
-    if cfg.bg_radius > 0:
-        raise unported("the background network (bg_radius > 0)", "A3")
-    if cfg.mlp_backend not in ("xla", "fused"):
-        raise ValueError(f"unknown mlp_backend {cfg.mlp_backend!r}")
-    _ = (cfg.pos_dim, cfg.dir_dim)  # raises for the unported encoders
 
 
 def _mlp_init(generator, dims, device):
@@ -102,16 +112,25 @@ def _mlp_init(generator, dims, device):
 
 
 def init_network(generator, cfg: NetworkConfig, device="cuda"):
-    """The params dict, drawn from a CPU torch.Generator (or None)."""
-    _check_supported(cfg)
+    """The params dict, drawn from a CPU torch.Generator (or None) in the
+    order encoder, sigma_net, color_net, bg_encoder, bg_net."""
+    if cfg.mlp_backend not in ("xla", "fused"):
+        raise ValueError(f"unknown mlp_backend {cfg.mlp_backend!r}")
     dev = resolve_device(device)
-    params = {"encoder": hash_grid_init(generator, cfg.grid, device=dev)}
+    params = {}
+    if cfg.encoding in ("hashgrid", "tiledgrid"):
+        params["encoder"] = hash_grid_init(generator, cfg.grid, device=dev)
     sigma_dims = ([cfg.pos_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
                   + [1 + cfg.geo_feat_dim])
     params["sigma_net"] = _mlp_init(generator, sigma_dims, dev)
     color_dims = ([cfg.dir_dim + cfg.geo_feat_dim]
                   + [cfg.hidden_dim_color] * (cfg.num_layers_color - 1) + [3])
     params["color_net"] = _mlp_init(generator, color_dims, dev)
+    if cfg.bg_radius > 0:
+        params["bg_encoder"] = hash_grid_init(generator, cfg.bg_grid, device=dev)
+        bg_dims = ([cfg.bg_grid.output_dim + cfg.dir_dim]
+                   + [cfg.hidden_dim_bg] * (cfg.num_layers_bg - 1) + [3])
+        params["bg_net"] = _mlp_init(generator, bg_dims, dev)
     return params
 
 
@@ -136,13 +155,15 @@ def _mlp_apply(layers, x, dtype, final_activation=None, backend="xla"):
 def _encode_pos(params, x, cfg: NetworkConfig):
     if cfg.encoding in ("hashgrid", "tiledgrid"):
         return hash_grid_encode(params["encoder"], x, cfg.grid, bound=cfg.bound)
-    raise unported("frequency position encoding", "A1")
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which can end a bit off the CPU's quotient
+    return freq_encode(x / device_const(cfg.bound, x.device), degree=cfg.freq_degree)
 
 
 def _encode_dir(d, cfg: NetworkConfig):
     if cfg.encoding_dir == "sphere_harmonics":
         return sh_encode(d, degree=cfg.sh_degree)
-    raise unported("frequency direction encoding", "A1")
+    return freq_encode(d, degree=cfg.freq_degree_dir)
 
 
 def density(params, x, cfg: NetworkConfig):
@@ -168,3 +189,18 @@ def color_from_encoded_dir(params, hd, geo_feat, cfg: NetworkConfig):
 def forward(params, x, d, cfg: NetworkConfig):
     out = density(params, x, cfg)
     return out["sigma"], color(params, d, out["geo_feat"], cfg)
+
+
+def background(params, sph, d, cfg: NetworkConfig):
+    """Background colour (N, 3) from sphere coordinates sph (N, 2) in
+    [-1, 1] (renderer.sph_from_ray) and the rays' directions d (N, 3)."""
+    h_sph = hash_grid_encode(params["bg_encoder"], sph, cfg.bg_grid, bound=1.0)
+    h = torch.cat([h_sph, _encode_dir(d, cfg)], dim=-1)
+    return _mlp_apply(params["bg_net"], h, cfg.compute_dtype, torch.sigmoid,
+                      backend=cfg.mlp_backend)
+
+
+def param_groups(params):
+    """A label per params key: "encoder" for the tables (keys that contain
+    "encoder"), "net" for the MLPs."""
+    return {k: "encoder" if "encoder" in k else "net" for k in params}

@@ -1,9 +1,12 @@
 """Volume rendering: the dense differentiable path and the occupancy grid.
 
 Counterpart of nerfnav_tpu/models/renderer.py (`Field`, `make_field`,
-`aabb_of`, `near_far_from_aabb`, `sample_pdf`, `composite`, the dense
-`render_rays` and `render_image`, `render_rays_grid` with its dense and
-point-budget packed shades, `render_rays_frozen`, `render_rays_grid_rounds`).
+`aabb_of`, `near_far_from_aabb`, `sph_from_ray`, `sample_pdf`, `composite`,
+the dense `render_rays` and `render_image`, `render_rays_grid` with its
+dense and point-budget packed shades, `render_rays_frozen`,
+`render_rays_grid_rounds`). A field with a background network (bg_radius >
+0) colours each ray's remaining transmittance from where the ray leaves the
+background sphere, and every renderer then ignores bg_color.
 The reference wraps every round of the eval renderer in a `lax.cond`;
 eagerly those are Python branches on the alive count, one host read per
 round.
@@ -32,7 +35,9 @@ class Field(NamedTuple):
     density_fn: (N,3) -> (sigma (N,), geo_feat (N,G))
     color_fn:   (dirs (N,3), geo_feat (N,G)) -> rgb (N,3)
     encode_dir_fn / color_enc_fn: the split color path (direction encoded
-    once per ray)."""
+    once per ray)
+    bg_fn:      optional (sph (N,2), dirs (N,3)) -> rgb (N,3), used when
+                bg_radius > 0"""
 
     density_fn: Callable
     color_fn: Callable
@@ -46,8 +51,6 @@ class Field(NamedTuple):
 
 def make_field(params, cfg: "net.NetworkConfig") -> Field:
     """Bundle a network's params into renderer closures."""
-    if cfg.bg_radius > 0:
-        raise unported("the background network (bg_radius > 0)", "A3")
 
     def density_fn(x):
         out = net.density(params, x, cfg)
@@ -62,9 +65,14 @@ def make_field(params, cfg: "net.NetworkConfig") -> Field:
     def color_enc_fn(hd, geo_feat):
         return net.color_from_encoded_dir(params, hd, geo_feat, cfg)
 
+    bg_fn = None
+    if cfg.bg_radius > 0:
+        def bg_fn(sph, d):  # noqa: E306
+            return net.background(params, sph, d, cfg)
+
     return Field(density_fn=density_fn, color_fn=color_fn, bound=cfg.bound,
-                 density_scale=cfg.density_scale, encode_dir_fn=encode_dir_fn,
-                 color_enc_fn=color_enc_fn)
+                 density_scale=cfg.density_scale, bg_fn=bg_fn, bg_radius=cfg.bg_radius,
+                 encode_dir_fn=encode_dir_fn, color_enc_fn=color_enc_fn)
 
 
 @dataclass(frozen=True)
@@ -90,6 +98,28 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.2):
     near = torch.clamp(torch.minimum(t0, t1).amax(dim=-1), min=min_near)
     far = torch.maximum(torch.maximum(t0, t1).amin(dim=-1), near)
     return near, far
+
+
+def sph_from_ray(rays_o, rays_d, radius: float):
+    """Where each ray leaves the background sphere of `radius`, as (N, 2)
+    coordinates in [-1, 1]: azimuth atan2(y, x) / pi and 2 acos(z / R) / pi
+    - 1. Rays are assumed to start inside the sphere.
+
+    Both quotients divide by device tensors (CUDA divides by a Python scalar
+    as a multiply by its reciprocal, and the result feeds the 2-D grid's
+    floor), and the clips are maximum / minimum, which split the gradient
+    at a tie as jnp.maximum and jnp.clip do."""
+    dev = rays_o.device
+    b = (rays_o * rays_d).sum(dim=-1)
+    c = (rays_o * rays_o).sum(dim=-1) - radius * radius
+    d2 = (rays_d * rays_d).sum(dim=-1)
+    disc = torch.maximum(b * b - d2 * c, device_const(0.0, dev))
+    t = (-b + torch.sqrt(disc)) / torch.maximum(d2, device_const(1e-9, dev))
+    p = rays_o + t[:, None] * rays_d
+    u = torch.atan2(p[:, 1], p[:, 0]) / device_const(math.pi, dev)
+    v = (2.0 * torch.acos(_clip(p[:, 2] / device_const(radius, dev), -1.0, 1.0))
+         / device_const(math.pi, dev) - 1.0)
+    return torch.stack([u, v], dim=-1)
 
 
 @lru_cache(maxsize=None)
@@ -165,12 +195,15 @@ def _clip(x, lo: float, hi: float):
     return torch.minimum(torch.maximum(x, lo_t), lo_t + (hi - lo))
 
 
-def _background(field: Field, bg_color, image):
+def _background(field: Field, bg_color, rays_o, rays_d):
+    """The colour behind each ray: the field's background network where it
+    has one (bg_color is then ignored), else bg_color (a scalar, (3,) or
+    (N, 3)). rays_d reaches the network un-normalized, as in the reference."""
     if field.bg_fn is not None and field.bg_radius > 0:
-        raise unported("background network compositing", "A3")
+        return field.bg_fn(sph_from_ray(rays_o, rays_d, field.bg_radius), rays_d)
     if isinstance(bg_color, (int, float)):
-        return device_const(bg_color, image.device)
-    return torch.as_tensor(bg_color, dtype=torch.float32, device=image.device)
+        return device_const(bg_color, rays_o.device)
+    return torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device)
 
 
 def render_rays(field: Field, rcfg: RenderConfig, rays_o, rays_d, jitter=None, u=None,
@@ -232,7 +265,7 @@ def render_rays(field: Field, rcfg: RenderConfig, rays_o, rays_d, jitter=None, u
     dirs = _unit(rays_d)[:, None, :].expand(n, t, 3).reshape(-1, 3)
     rgbs = field.color_fn(dirs, geo_feats.reshape(n * t, -1)).reshape(n, t, 3)
     image, depth, weights_sum, _ = composite(sigmas, rgbs, deltas, z_vals, field.density_scale)
-    bg = _background(field, bg_color, image)
+    bg = _background(field, bg_color, rays_o, rays_d)
     image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
     return {"image": image, "depth": depth, "weights_sum": weights_sum}
 
@@ -263,7 +296,7 @@ def render_rays_frozen(field: Field, bound: float, rays_o, rays_d, z, dt, valid,
     z, dt = z.detach(), dt.detach()
     sigmas, rgbs = _shade_dense(field, rays_o, rays_d, z, valid, bound)
     image, depth, weights_sum, _ = composite(sigmas, rgbs, dt, z, field.density_scale)
-    bg = _background(field, bg_color, image)
+    bg = _background(field, bg_color, rays_o, rays_d)
     image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
     return {"image": image, "depth": depth, "weights_sum": weights_sum}
 
@@ -284,8 +317,6 @@ def render_rays_grid(field: Field, occupancy, mcfg, rays_o, rays_d, key=None,
 
     if sample_groups != 1:
         raise unported("sample_groups > 1 (per-shard packing under a mesh)", "A11")
-    if field.bg_fn is not None and field.bg_radius > 0:
-        raise unported("background network compositing", "A3")
     n = rays_o.shape[0]
     # detached rays: no derivative of either mode enters the march
     with torch.no_grad():
@@ -300,7 +331,7 @@ def render_rays_grid(field: Field, occupancy, mcfg, rays_o, rays_d, key=None,
     else:
         sigmas, rgbs = _shade_dense(field, rays_o, rays_d, z, valid, mcfg.bound)
     image, depth, weights_sum, _ = composite(sigmas, rgbs, dt, z, field.density_scale)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device)
+    bg = _background(field, bg_color, rays_o, rays_d)
     image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
     return {"image": image, "depth": depth, "weights_sum": weights_sum,
             "n_samples": n_samples}
@@ -381,8 +412,6 @@ def render_rays_grid_rounds(field: Field, occupancy, mcfg, rays_o, rays_d,
 
     if shade_order not in ("ray", "depth"):
         raise ValueError(f"unknown shade_order {shade_order!r}")
-    if field.bg_fn is not None and field.bg_radius > 0:
-        raise unported("background network compositing", "A3")
     n = rays_o.shape[0]
     m = march(rays_o, rays_d, occupancy, mcfg, key=key, crop_aabb=crop_aabb,
               z_window=z_window, phase_a=phase_a)
@@ -458,6 +487,7 @@ def render_rays_grid_rounds(field: Field, occupancy, mcfg, rays_o, rays_d,
             depth = depth + dep_d
             wsum = wsum + ws_d
 
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device)
+    # once per chunk, after the rounds
+    bg = _background(field, bg_color, rays_o, rays_d)
     image = image + (1.0 - wsum)[:, None] * bg
     return {"image": image.clamp(0.0, 1.0), "depth": depth, "weights_sum": wsum}

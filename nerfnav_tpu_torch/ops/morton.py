@@ -1,13 +1,61 @@
-"""Occupancy bit-packing: byte bitfields and block-packed rows.
+"""Morton (Z-order) codes and occupancy bit-packing: byte bitfields and
+block-packed rows.
 
-Counterpart of nerfnav_tpu/ops/morton.py (the packing half). Row layouts and
-bit orders match the reference bit for bit. Block rows are uint32 words in
+Counterpart of nerfnav_tpu/ops/morton.py. Row layouts, bit orders and codes
+match the reference bit for bit. Block rows and Morton codes are uint32 in
 the reference; here they are carried in int64 tensors (torch.uint32 lacks
 most operations), each holding a value in [0, 2^32). The weight bridge
 (training/checkpoint.py) converts at the boundary.
 """
 
+import numpy as np
 import torch
+
+_U32 = 0xFFFFFFFF
+
+
+def _expand_bits(v):
+    """Spread the low 10 bits of v (int64) so two zero bits follow each:
+    the reference's uint32 multiply-and-mask steps (products stay far below
+    2^63, and each mask keeps the low 32 bits)."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    v = (v * 0x00000005) & 0x49249249
+    return v
+
+
+def morton3d(coords: torch.Tensor) -> torch.Tensor:
+    """(..., 3) integer coords in [0, 1024) -> (...,) int64 Morton codes."""
+    c = coords.long() & _U32
+    x, y, z = (_expand_bits(c[..., i]) for i in range(3))
+    return (x | (y << 1) | (z << 2)) & _U32
+
+
+def _compact_bits(v):
+    v = v & 0x49249249
+    v = (v | (v >> 2)) & 0xC30C30C3
+    v = (v | (v >> 4)) & 0x0F00F00F
+    v = (v | (v >> 8)) & 0xFF0000FF
+    v = (v | (v >> 16)) & 0x000003FF
+    return v
+
+
+def morton3d_invert(codes: torch.Tensor) -> torch.Tensor:
+    """(...,) Morton codes in [0, 2^32) -> (..., 3) int64 coords."""
+    c = codes.long() & _U32
+    return torch.stack([_compact_bits(c), _compact_bits(c >> 1), _compact_bits(c >> 2)],
+                       dim=-1)
+
+
+def rowmajor_to_morton(grid_size: int) -> np.ndarray:
+    """(H^3,) int64 numpy: the Morton code of each row-major cell index
+    (x H + y) H + z, the permutation between the port's row-major density
+    grid and torch-ngp's Morton-indexed one: ours[i] == theirs[perm[i]]."""
+    h = grid_size
+    idx = torch.arange(h**3, dtype=torch.int64)
+    coords = torch.stack([idx // (h * h), (idx // h) % h, idx % h], dim=-1)
+    return morton3d(coords).numpy()
 
 
 def packbits(occupied: torch.Tensor) -> torch.Tensor:

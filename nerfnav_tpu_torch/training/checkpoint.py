@@ -1,7 +1,9 @@
 """Checkpoints in the JAX package's format, both ways, and the weight bridge.
 
-The JAX package stores params as a pytree (`encoder` level list,
-`sigma_net`, `color_net` weight lists, weights (in, out)) and checkpoints as
+The JAX package stores params as a pytree (`encoder` level list, absent
+for a frequency-encoded field, `sigma_net`, `color_net` weight lists,
+weights (in, out), and with a background network `bg_encoder` and
+`bg_net`) and checkpoints as
 one .npz of path-keyed leaves (`k:['ema_params']['encoder'][0]`, ...) plus a
 `__meta__` JSON blob (nerfnav_tpu/training/checkpoint.py). This module
 writes and reads that format from the port's tensors, so checkpoints cross
@@ -21,9 +23,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import resolve_device, unported
+from nerfnav_tpu_torch.device import resolve_device
 
-_PARAM_KEYS = ("encoder", "sigma_net", "color_net")
+# every params key in the order init_network builds them; the MLPs are
+# required, the encoders optional (bg_encoder comes with bg_net)
+_PARAM_KEYS = ("encoder", "sigma_net", "color_net", "bg_encoder", "bg_net")
+_REQUIRED_KEYS = ("sigma_net", "color_net")
 
 
 class AdamState(NamedTuple):
@@ -181,11 +186,13 @@ def params_from_numpy(tree, device="cuda"):
     """JAX params pytree (numpy leaves) -> the port's params dict."""
     dev = resolve_device(device)
     extra = set(tree) - set(_PARAM_KEYS)
-    if extra & {"bg_encoder", "bg_net"}:
-        raise unported("the background network (bg_encoder / bg_net)", "A3")
     if extra:
         raise ValueError(f"unknown params keys {sorted(extra)}")
-    return {k: [_tensor(a, dev) for a in tree[k]] for k in _PARAM_KEYS}
+    missing = [k for k in _REQUIRED_KEYS if k not in tree]
+    if missing or ("bg_encoder" in tree) != ("bg_net" in tree):
+        raise ValueError(f"params keys {sorted(tree)}: need sigma_net and color_net, "
+                         "and bg_encoder with bg_net")
+    return {k: [_tensor(a, dev) for a in tree[k]] for k in _PARAM_KEYS if k in tree}
 
 
 def occupancy_from_numpy(occ, device="cuda"):
@@ -216,14 +223,13 @@ def load_checkpoint_npz(path: str, device="cuda"):
         info = json.loads(bytes(data["__meta__"].tobytes()).decode())
         prefix = None
         for cand in ("['ema_params']", "['params']", ""):
-            if f"k:{cand}['encoder'][0]" in data.files:
+            # sigma_net: every field has one (a frequency field no encoder)
+            if f"k:{cand}['sigma_net'][0]" in data.files:
                 prefix = cand
                 break
         if prefix is None:
-            raise ValueError(f"{path}: no path-keyed encoder tables")
-        tree = {k: _collect(data, prefix, k) for k in _PARAM_KEYS}
-        if _collect(data, prefix, "bg_encoder"):
-            tree["bg_encoder"] = _collect(data, prefix, "bg_encoder")
+            raise ValueError(f"{path}: no path-keyed sigma_net weights")
+        tree = {k: rows for k in _PARAM_KEYS if (rows := _collect(data, prefix, k))}
         occ_prefix = "k:['occupancy']['"
         occ = {k[len(occ_prefix):-2]: data[k] for k in data.files
                if k.startswith(occ_prefix)}

@@ -503,11 +503,15 @@ class Trainer:
                        first_k=fk, proxy_terminate=px)
 
     def _cast_eval_tables(self, params):
-        """Hash tables in opt.eval_table_dtype, cached per params object and
-        version (a train step updates the params in place).
+        """The field's hash tables ("encoder"; the background's stay f32, as
+        in the reference) in opt.eval_table_dtype, cached per params object
+        and version (a train step updates the params in place). A
+        frequency-encoded field (no "encoder") passes through unchanged.
 
         With the fused MLP backend the MLP weights are also stored in bf16,
         the type the kernel reads, so no call re-casts them."""
+        if "encoder" not in params:
+            return params
         cached = self._table_cast_cache
         if (cached is None or cached[0] is not params
                 or cached[1] != self._params_version):
@@ -515,8 +519,9 @@ class Trainer:
             cast = dict(params)
             cast["encoder"] = [t.to(dtype) for t in params["encoder"]]
             if self.cfg.mlp_backend == "fused":
-                for k in ("sigma_net", "color_net"):
-                    cast[k] = [w.to(torch.bfloat16) for w in params[k]]
+                for k in ("sigma_net", "color_net", "bg_net"):
+                    if k in params:
+                        cast[k] = [w.to(torch.bfloat16) for w in params[k]]
             self._table_cast_cache = (params, self._params_version, cast)
         return self._table_cast_cache[2]
 
