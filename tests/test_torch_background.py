@@ -317,11 +317,12 @@ def test_render_full_with_bg(tmp_path, grid, monkeypatch):
     assert cast["bg_encoder"][0].dtype == torch.float32
 
 
-@pytest.mark.parametrize("path", ["grid", "dense"])
+@pytest.mark.parametrize("path", ["grid", "dense", "dense_frequency"])
 def test_train_step_with_bg(path, tmp_path, monkeypatch):
     """One train step with a bg net, on the grid path (the port's march) or
     the dense one (jitter and importance draws split from the JAX step's
-    key as its step splits it): the loss and every gradient leaf, bg_encoder
+    key as its step splits it), the latter also on a frequency-encoded
+    field (no "encoder" params): the loss and every gradient leaf, bg_encoder
     and bg_net included, within 1e-5 (the gradients through Adam's first
     moment, 0.1 g; the JAX side on the port's sphere coordinates, see
     _sph_by_port). The dense field is kept translucent, so the background
@@ -330,6 +331,8 @@ def test_train_step_with_bg(path, tmp_path, monkeypatch):
     net_kw = dict(bound=2.0, grid_levels=2, grid_level_dim=8, grid_log2_hashmap_size=10,
                   grid_max_resolution=32, grid_layout="cell", bg_radius=BG_RADIUS,
                   density_scale=10.0 if path == "grid" else 0.2)
+    if path == "dense_frequency":
+        net_kw.update(encoding="frequency", encoding_dir="frequency", freq_degree=4)
     ds = _dataset()
     H, W, C = ds.images.shape[1:]
     arrays_j = {k: jnp.asarray(v) for k, v in ds.as_arrays().items()}
@@ -369,6 +372,7 @@ def test_train_step_with_bg(path, tmp_path, monkeypatch):
     np.testing.assert_allclose(float(out.loss), float(loss_j), rtol=1e-5)
     names = [k for k in sorted(tt.params) for _ in tt.params[k]]
     assert names[:6] == ["bg_encoder"] * 4 + ["bg_net"] * 2
+    assert ("encoder" in tt.params) == (path != "dense_frequency")
     _grads_close([0.1 * g.numpy() for g in out.grads],
                  [np.asarray(m) for m in jax.tree_util.tree_leaves(sj.opt_state[0].mu)], 1e-5)
 
