@@ -10,12 +10,14 @@
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes (the eval round's, a grid train step's and a
    dense train step's, 4096 rays x 512 samples; the background net's
-   24-64-3 at one 4096-ray chunk and one ragged N), ragged ones and the edges
+   24-64-3 at one 4096-ray chunk and one ragged N; the sigma net at save_mesh's
+   2^16-point chunk with f32 weights), ragged ones and the edges
    of the kernel's contract (fused MLP: atol = rtol = 2e-2, the bound
    tests/test_fused_mlp.py uses; hidden activations are re-rounded to bf16, so a different f32
    summation order can move one by a bf16 step), then timed with CUDA events
    beside the plain version and a library call, at the main path's N and at
-   8 x N, and the background net's at N = 4096. With --kernels-only the
+   8 x N, the background net's at N = 4096 and the sigma net's at save_mesh's
+   N = 2^16 (f32 weights, cast per call). With --kernels-only the
    script stops here, with no result line.
 3. Slice phase: the -O --ff eval render, Trainer.render_full of one 800x800
    frame of the flagship field (cell hash grid 4x8 @ 2^17, fused MLPs,
@@ -129,7 +131,28 @@
    (params bit-equal, bitfields and blocks equal, a 64x64 crop within 1e-6).
    Prints step ms (with a profiled step's idle share), the 800x800 frame's
    ms, the fused and bg launches per step and per frame, the phase's s.
-8. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+8. Options phase, the remaining march and occupancy options and the mesh
+   export, on the training phase's trained field in the flagship eval
+   configuration (cell 4x8 @ 2^17, fused MLPs, bound 2, grid 128, K 32,
+   bf16 tables, AUTO beam) at 800x800 from yaw 0: one timed and one
+   profiled frame for each of OPT_SETTINGS (the rounds render, first_k,
+   proxy, both, a0_segments 6, eval_frame_phase_a), each finite with 0 <
+   mean < 1, through the block marcher, launching the fused kernel, with
+   its ms, shaded rounds, fused launches and PSNR against the baseline
+   frame. Checks: the frame-level phase A renders the baseline image bit for
+   bit, and each chunk's march from it equals the chunk's own march; on a
+   central 64x64 crop from CPU-made rays, the march under first_k, proxy,
+   a0 and a depth window card against CPU port (the reference phase's bars,
+   the crop's image within 5e-3), the byte two-phase and single-phase
+   marchers with the block tables stripped (valid masks equal) and
+   march_segments; a whole frame on the byte bitfields, timed;
+   autotune_march_shape on 4096 rays with 3 candidates returns one of them;
+   occ_debounce, two sweeps card against CPU (bitfield, blocks, pending
+   equal); save_mesh at 256^3 writes a PLY with faces in 256 fused launches,
+   and extract_geometry at 64^3 with xla fp32 MLPs card against CPU (equal
+   counts, vertices within 1e-4). Prints the frame's eval march by stage
+   (stop_after "phase_a" and "phase_b_occ") and the phase's s.
+9. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -156,6 +179,7 @@ MLP_SHAPES = {"sigma": [32, 64, 16], "color": [31, 64, 64, 3], "bg": [24, 64, 3]
 # the background net runs once per 4096-ray chunk or train step instead
 ROUND_SHAPES = ("sigma", "color")
 BG_N = 4096
+MESH_N = 2**16      # extract_geometry's chunk of lattice points
 # edges of the fused MLP's contract (1-8 layers, widths 1-256, any N):
 # name -> (dims, rows); plus the color net at COLOR_EDGE_ROWS rows
 MLP_EDGES = {"8x128": ([128] * 9, 1000), "3-256-256-1": ([3, 256, 256, 1], 1000),
@@ -228,11 +252,11 @@ def mlp_weights(dims, gen, device, scale=None):
     return ws
 
 
-def mlp_bound_ms(n, dims):
-    """Least time for one fused-MLP call: f32 input and output once, bf16
-    weights once, against the dense bf16 peak."""
+def mlp_bound_ms(n, dims, f32=False):
+    """Least time for one fused-MLP call: f32 input and output once, the
+    weights once (bf16, or f32 with f32=True), against the dense bf16 peak."""
     bytes_ = n * (dims[0] + dims[-1]) * 4 + sum(
-        a * b * 2 for a, b in zip(dims[:-1], dims[1:]))
+        a * b * (4 if f32 else 2) for a, b in zip(dims[:-1], dims[1:]))
     flops = 2 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_BF16_FLOP_PER_S * 1e3
@@ -272,6 +296,12 @@ def kernel_phase(device, n_full, n_dense, timer):
         # a dense step's N (4096 rays x 512 samples at full size)
         x = torch.randn((n_dense, dims[0]), generator=gen).to(device)
         compare(x, ws, "relu", "none", f"{name} N={n_dense} (dense step), f32 weights")
+    # save_mesh's chunk of 2^16 lattice points through the sigma net, with
+    # the f32 EMA weights it passes
+    dims = MLP_SHAPES["sigma"]
+    ws = mlp_weights(dims, gen, device)
+    x = torch.randn((MESH_N, dims[0]), generator=gen).to(device)
+    compare(x, ws, "relu", "none", f"sigma N={MESH_N} (mesh chunk), f32 weights")
     # the background net's N: one 4096-ray chunk or train step, and a ragged
     # one, with the bf16 weights of the eval cast and the f32 masters
     dims = MLP_SHAPES["bg"]
@@ -308,7 +338,9 @@ def kernel_phase(device, n_full, n_dense, timer):
     per_shape = time_shapes(n_full, gen, device, timer)
     big = time_shapes(8 * n_full, gen, device, timer)
     bg = time_shapes(BG_N, gen, device, timer, ("bg",))["bg"]
-    for n, shapes in ((n_full, per_shape), (8 * n_full, big), (BG_N, {"bg": bg})):
+    mesh = time_shapes(MESH_N, gen, device, timer, ("sigma",), f32=True)["sigma"]
+    for n, shapes in ((n_full, per_shape), (8 * n_full, big), (BG_N, {"bg": bg}),
+                      (MESH_N, {"sigma, f32 weights (save_mesh)": mesh})):
         log("fused_mlp per shape at N =", n, json.dumps(shapes))
     total = {k: sum(v[k] for v in per_shape.values())
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -316,19 +348,25 @@ def kernel_phase(device, n_full, n_dense, timer):
     return {**total, "max_abs_err": max_err,
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
             **{f"bg_{k}": bg[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            "bg_bound_by": mlp_bound_ms(BG_N, MLP_SHAPES["bg"])[1]}
+            "bg_bound_by": mlp_bound_ms(BG_N, MLP_SHAPES["bg"])[1],
+            **{f"mesh_{k}": mesh[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "mesh_bound_by": mlp_bound_ms(MESH_N, MLP_SHAPES["sigma"], f32=True)[1]}
 
 
-def time_shapes(n, gen, device, timer, names=ROUND_SHAPES):
+def time_shapes(n, gen, device, timer, names=ROUND_SHAPES, f32=False):
     """Kernel, plain version and bf16 torch.matmul chain at N = n rows for
-    each named shape; with the bound and the kernel's share of it."""
+    each named shape; with the bound and the kernel's share of it. The
+    kernel gets bf16 weights, as Trainer._cast_eval_tables hands them over,
+    or with f32=True the f32 masters (save_mesh's EMA params), which it
+    casts per call; the chain gets bf16 ones."""
     from nerfnav_tpu_torch.ops import fused_mlp as fm
 
     out = {}
     for name in names:
         dims = MLP_SHAPES[name]
-        # bf16 weights, as Trainer._cast_eval_tables hands them to the kernel
-        wb = [w.to(torch.bfloat16) for w in mlp_weights(dims, gen, device)]
+        ws = mlp_weights(dims, gen, device)
+        wk = ws if f32 else [w.to(torch.bfloat16) for w in ws]
+        wb = [w.to(torch.bfloat16) for w in ws]
         x = torch.randn((n, dims[0]), generator=gen).to(device)
 
         def library(x=x, wb=wb):
@@ -339,10 +377,10 @@ def time_shapes(n, gen, device, timer, names=ROUND_SHAPES):
                     h = torch.relu(h)
             return h.float()
 
-        t = {"ms": timer(lambda x=x, wb=wb: fm.fused_mlp(x, wb)),
-             "plain_ms": timer(lambda x=x, wb=wb: fm.fused_mlp_reference(x, wb)),
+        t = {"ms": timer(lambda x=x, wk=wk: fm.fused_mlp(x, wk)),
+             "plain_ms": timer(lambda x=x, wk=wk: fm.fused_mlp_reference(x, wk)),
              "library_ms": timer(library),
-             "bound_ms": mlp_bound_ms(n, dims)[0]}
+             "bound_ms": mlp_bound_ms(n, dims, f32=f32)[0]}
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
         out[name] = t
     return out
@@ -392,7 +430,9 @@ def make_trainer(device, sizes, params=None, occupancy=None, density_scale=300.0
     if occupancy is None:
         occupancy = shell_occupancy(bound, sizes["grid"], mcfg.coarse_factor, device)
     return Trainer(cfg, RenderConfig(max_ray_batch=4096),
-                   TrainerOptions(eval_table_dtype="bfloat16"), params=params,
+                   # the options phase's save_mesh logs under its own directory
+                   TrainerOptions(eval_table_dtype="bfloat16", workspace=OPT_DIR),
+                   params=params,
                    occupancy_cfg=OccupancyConfig(bound=bound, grid_size=sizes["grid"]),
                    march_cfg=mcfg, occupancy=occupancy, device=device)
 
@@ -412,12 +452,14 @@ def profile_call(fn, unprofiled_ms, what, host_ops=True):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
+    # the raw trace: building the profiler's FunctionEvent tree for ~10^5
+    # kernels takes half a minute of host time per call
+    for e in prof.profiler.kineto_results.events():
         # record_function ranges (the optimizer's step) also show on the
         # device timeline; only kernels count as device time
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     if not by_name:
         log(f"{what}: the profiler recorded no device time (not measured)")
         return None
@@ -716,11 +758,15 @@ def training_phase(device, sizes, card):
     del tr2
     shutil.rmtree(workspace + "_load", ignore_errors=True)
     # the nav phase flies through this trained field: keep its checkpoint
-    # (EMA params + occupancy) where cli/simulate.py's loader looks
+    # (EMA params + occupancy) where cli/simulate.py's loader looks, and
+    # for the options phase
     nav_ckpt = os.path.join(NAV_WS, "checkpoints", "ngp_ep0001.npz")
     shutil.rmtree(NAV_WS, ignore_errors=True)
+    shutil.rmtree(OPT_DIR, ignore_errors=True)
     os.makedirs(os.path.dirname(nav_ckpt))
+    os.makedirs(OPT_DIR)
     shutil.copy(ckpt_lib.latest_checkpoint(tr.ckpt_dir, "smoke"), nav_ckpt)
+    shutil.copy(nav_ckpt, OPT_CKPT)
 
     time_training(tr, arrays, H, W, device, card, step_launches / TRAIN_STEPS)
     shutil.rmtree(workspace, ignore_errors=True)
@@ -2055,6 +2101,430 @@ def bg_phase(device, sizes, card):
             "bg_grid_launches_per_step": timing["fused_launches_per_step"]}
 
 
+# ------------------------------------------------------------- options phase
+OPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_opts")
+OPT_CKPT = os.path.join(OPT_DIR, "trained.npz")
+# the settings each rendered as one timed and one profiled frame: name ->
+# (TrainerOptions fields, MarchConfig fields); eval_beam stays AUTO
+OPT_SETTINGS = {
+    "baseline": ({}, {}),
+    "first_k": ({"eval_first_k": True}, {}),
+    "proxy": ({"eval_proxy": True}, {}),
+    "first_k+proxy": ({"eval_first_k": True, "eval_proxy": True}, {}),
+    "a0_segments_6": ({}, {"a0_segments": 6}),
+    "frame_phase_a": ({"eval_frame_phase_a": True}, {}),
+}
+# the depth window of the card-vs-CPU crop check: around the origin, where
+# the trained field is, from the camera 1.8 away
+OPT_Z_WINDOW = (1.4, 2.2)
+
+
+def options_trainer(device, sizes):
+    """The flagship eval configuration (make_trainer: cell 4x8, fused MLPs,
+    bound 2, K 32, bf16 tables, AUTO beam) on the training phase's trained
+    field (its EMA params and occupancy; density_scale 1, as trained)."""
+    from nerfnav_tpu_torch.training.checkpoint import load_checkpoint_npz
+
+    loaded = load_checkpoint_npz(OPT_CKPT, device)
+    return make_trainer(device, sizes, params=loaded["ema_params"],
+                        occupancy=loaded["occupancy"], density_scale=1.0)
+
+
+def set_options(tr, opt_kw, mcfg_kw, base):
+    """tr's TrainerOptions and MarchConfig set to base (the pair of
+    defaults) with the fields given, and its render caches dropped."""
+    import dataclasses
+
+    tr.opt = dataclasses.replace(base[0], **opt_kw)
+    tr.march_cfg = dataclasses.replace(base[1], **mcfg_kw)
+    tr.invalidate_render_cache()
+
+
+def marcher_calls(fn):
+    """fn() and the names of the marchers march() took in it."""
+    from nerfnav_tpu_torch.ops import marching as tm
+
+    before = dict(tm.march.calls)
+    out = fn()
+    return out, {k for k, v in tm.march.calls.items() if v != before[k]}
+
+
+def psnr_vs(img, ref):
+    mse = float(((img.float() - ref.float()) ** 2).mean())
+    return math.inf if mse == 0.0 else -10.0 * math.log10(mse)
+
+
+def option_frames(tr, pose, intr, hw, device):
+    """One timed frame per OPT_SETTINGS entry and one on the byte bitfields
+    (the block tables stripped: the two-phase marcher), then one profiled
+    frame per setting (a profile leaves the host slower for a while, so no
+    timed frame follows one); returns ({name: frame record}, {name:
+    image})."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    base = (tr.opt, tr.march_cfg)
+    frames, images = {}, {}
+    for name, (opt_kw, mcfg_kw) in OPT_SETTINGS.items():
+        set_options(tr, opt_kw, mcfg_kw, base)
+        fm.fused_mlp.launches = 0
+        sync(device)
+        t0 = time.perf_counter()
+        (image, depth), took = marcher_calls(
+            lambda: tr.render_full(tr.params, pose, intr, hw, hw))
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = fm.fused_mlp.launches
+        mean = check_frame(image, depth, hw)
+        check(took == {"block"}, f"{name}: the frame took the marchers {took}")
+        if device.type == "cuda":
+            check(launches > 0, f"{name}: the frame never launched the fused-MLP kernel")
+        images[name] = image
+        frames[name] = {"frame_ms": ms, "shaded_rounds": launches // 2,
+                        "fused_launches": launches, "mean_image": mean,
+                        "psnr_vs_baseline": psnr_vs(image, images["baseline"])}
+    set_options(tr, {}, {}, base)
+    # a whole frame on the byte bitfields (the block tables stripped)
+    occ = tr.occupancy
+    tr.set_occupancy({k: v for k, v in occ.items() if not k.startswith("blocks")})
+    fm.fused_mlp.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    (image, depth), took = marcher_calls(lambda: tr.render_full(tr.params, pose, intr, hw, hw))
+    sync(device)
+    byte = {"frame_ms": (time.perf_counter() - t0) * 1e3, "marchers": sorted(took),
+            "fused_launches": fm.fused_mlp.launches, "mean_image": check_frame(image, depth, hw),
+            "psnr_vs_baseline": psnr_vs(image, images["baseline"])}
+    log("frame without block tables:", json.dumps(byte))
+    check(took == {"two_phase"}, f"the block-less frame took the marchers {took}")
+    tr.set_occupancy(occ)
+    frames["byte_bitfields"] = byte
+    for name, (opt_kw, mcfg_kw) in OPT_SETTINGS.items():
+        rec = frames[name]
+        if device.type == "cuda":
+            set_options(tr, opt_kw, mcfg_kw, base)
+            prof = profile_call(lambda: tr.render_full(tr.params, pose, intr, hw, hw),
+                                rec["frame_ms"], f"profiled frame, {name}", host_ops=False)
+            rec["device_busy_ms"] = prof and prof["device_busy_ms"]
+            rec["device_idle_share"] = prof and prof["device_idle_share_of_unprofiled_call"]
+        log(f"options frame {name}:", json.dumps(rec))
+    set_options(tr, {}, {}, base)
+    return frames, images
+
+
+def frame_split_check(tr, pose, intr, hw):
+    """The frame-level phase A against the per-chunk march on this device:
+    each chunk's slice of the frame-wide phase A equals its own phase A, and
+    the chunk's march from that slice equals its whole march, bit for bit.
+    Returns the number of chunks checked."""
+    from nerfnav_tpu_torch.ops.marching import march
+
+    tr.opt.eval_frame_phase_a = True
+    chunk = tr.rcfg.max_ray_batch
+    with torch.no_grad():
+        ro, rd, _ = tr._frame_rays(pose, intr, hw, hw, chunk, None)
+        mcfg, occ = tr._frame_march(intr, hw, hw, rd)
+        split = tr._frame_phase_a(ro, rd, occ, mcfg, None)
+        check(split is not None, "eval_frame_phase_a gave no frame-level phase A")
+        differ = []
+        for i in range(0, ro.shape[0], chunk):
+            sl = slice(i, i + chunk)
+            pa = {k: v[sl] for k, v in split.items()}
+            own = march(ro[sl], rd[sl], occ, mcfg, stop_after="phase_a")
+            whole = march(ro[sl], rd[sl], occ, mcfg)
+            from_split = march(ro[sl], rd[sl], occ, mcfg, phase_a=pa)
+            if not (all(torch.equal(own[k], pa[k]) for k in pa)
+                    and all(torch.equal(whole[k], from_split[k]) for k in ("z", "dt", "valid"))):
+                differ.append(i // chunk)
+    tr.opt.eval_frame_phase_a = False
+    n = -(-ro.shape[0] // chunk)
+    log(f"frame-level phase A (beam {mcfg.beam}): {n - len(differ)} of {n} chunks' marches "
+        f"equal the per-chunk march bit for bit")
+    check(not differ, f"chunks {differ[:10]} march differently from the frame-level phase A")
+    return n
+
+
+def crop_vs_cpu(tr, tr_cpu, pose, intr, hw, device):
+    """On a central 64x64 crop, from rays made on the CPU: the eval march
+    under first_k, proxy, a0 and a depth window on this device and on the CPU
+    port (REF_MARCH_RAYS_EQUAL of the rows, z / dt within REF_MARCH_ZDT_TOL,
+    the crop's image within 5e-3); with the block tables stripped, the
+    two-phase and the single-phase marchers (valid masks equal); and
+    march_segments."""
+    from nerfnav_tpu_torch.models.renderer import make_field, render_rays_grid_rounds
+    from nerfnav_tpu_torch.ops import marching as tm
+
+    cpu = torch.device("cpu")
+    intr64 = intr.copy()
+    intr64[2:] -= (hw - 64) / 2
+    base = [(t.opt, t.march_cfg) for t in (tr, tr_cpu)]
+    cases = {"first_k": ({"eval_first_k": True}, {}, None),
+             "proxy": ({"eval_proxy": True}, {}, None),
+             "a0_segments_6": ({}, {"a0_segments": 6}, None),
+             "z_window": ({}, {}, OPT_Z_WINDOW),
+             "two_phase": ({}, {}, None), "single": ({}, {}, None)}
+    out = {}
+    with torch.no_grad():
+        ro, rd, _ = tr_cpu._frame_rays(pose, intr64, 64, 64, 4096, None)
+        for name, (opt_kw, mcfg_kw, zw) in cases.items():
+            ms, imgs = [], []
+            for t, b in zip((tr, tr_cpu), base):
+                set_options(t, opt_kw, mcfg_kw, b)
+                mcfg, occ = t._frame_march(intr64, 64, 64, rd)
+                if name in ("two_phase", "single"):
+                    occ = {k: v for k, v in occ.items() if not k.startswith("blocks")
+                           and (name == "two_phase" or k != "bitfield_coarse")}
+                o, d = ro.to(t.device), rd.to(t.device)
+                m, took = marcher_calls(lambda: tm.march(o, d, occ, mcfg, z_window=zw))
+                check(took == {"block" if name not in ("two_phase", "single") else name},
+                      f"{name}: the march took {took}")
+                ms.append({k: v.cpu() for k, v in m.items()})
+                if zw is not None:
+                    params = t._cast_eval_tables(t.params)
+                    imgs.append(render_rays_grid_rounds(
+                        make_field(params, t.cfg), occ, mcfg, o, d, z_window=zw)["image"].cpu())
+                elif name not in ("two_phase", "single"):
+                    imgs.append(t.render_full(t.params, pose, intr64, 64, 64)[0].cpu())
+            md, mc = ms
+            same = (md["valid"] == mc["valid"]).all(dim=1)
+            both = mc["valid"] & same[:, None]
+            zdt = max(float((md[k] - mc[k])[both].abs().max()) if both.any() else 0.0
+                      for k in ("z", "dt"))
+            res = {"rays_valid_differ": int((~same).sum()), "valid_samples": int(mc["valid"].sum()),
+                   "z_dt_max_abs": zdt, "beam": mcfg.beam}
+            if imgs:
+                res["image_mean_abs"] = float((imgs[0] - imgs[1]).abs().mean())
+            out[name] = res
+            check(res["valid_samples"] > 0, f"{name}: the crop's march kept no sample")
+            if name in ("two_phase", "single"):
+                check(bool(same.all()),
+                      f"{name}: {res['rays_valid_differ']} rays' valid rows differ")
+            else:
+                check(float(same.float().mean()) >= REF_MARCH_RAYS_EQUAL,
+                      f"{name}: {res['rays_valid_differ']} rays' valid rows differ")
+            check(zdt <= REF_MARCH_ZDT_TOL, f"{name}: z/dt {zdt} apart where both are valid")
+            check(res.get("image_mean_abs", 0.0) <= 5e-3, f"{name}: crop image {res}")
+        for t, b in zip((tr, tr_cpu), base):
+            set_options(t, {}, {}, b)
+        mcfg, _ = tr._frame_march(intr64, 64, 64, rd)
+        segs = [tm.march_segments(ro.to(t.device), rd.to(t.device), t.occupancy, mcfg)
+                for t in (tr, tr_cpu)]
+    hit = segs[1]["hit"]
+    check(torch.equal(segs[0]["hit"].cpu(), hit), "march_segments: hit differs")
+    seg_err = max(float((segs[0][k].cpu() - segs[1][k])[hit].abs().max()) if hit.any() else 0.0
+                  for k in ("z_first", "z_last"))
+    out["march_segments"] = {"hit": int(hit.sum()), "z_max_abs": seg_err}
+    check(seg_err <= REF_MARCH_ZDT_TOL, f"march_segments: z {seg_err} apart")
+    log("options on a 64x64 crop, this device vs the CPU port:", json.dumps(out))
+    return out
+
+
+def march_stage_split(tr, pose, intr, hw, device):
+    """The frame's eval march (as render_full sets it up) by stage, every
+    chunk marched to stop_after="phase_a", to "phase_b_occ" and whole:
+    phase A, phase B's occupancy test and the compaction, in ms of the host
+    clock around synchronized passes (the least of three each)."""
+    from nerfnav_tpu_torch.ops.marching import march
+
+    chunk = tr.rcfg.max_ray_batch
+    totals = {}
+    with torch.no_grad():
+        ro, rd, _ = tr._frame_rays(pose, intr, hw, hw, chunk, None)
+        mcfg, occ = tr._frame_march(intr, hw, hw, rd)
+        for stop in ("phase_a", "phase_b_occ", ""):
+            passes = []
+            for _ in range(3):
+                sync(device)
+                t0 = time.perf_counter()
+                for i in range(0, ro.shape[0], chunk):
+                    march(ro[i : i + chunk], rd[i : i + chunk], occ, mcfg, stop_after=stop)
+                sync(device)
+                passes.append((time.perf_counter() - t0) * 1e3)
+            totals[stop or "whole"] = min(passes)
+    split = {"phase_a_ms": totals["phase_a"],
+             "phase_b_occupancy_ms": totals["phase_b_occ"] - totals["phase_a"],
+             "compaction_ms": totals["whole"] - totals["phase_b_occ"],
+             "march_ms": totals["whole"], "chunks": -(-ro.shape[0] // chunk),
+             "beam": mcfg.beam, "t_a0_steps": mcfg.t_a0_steps}
+    log("eval march by stage (baseline frame):", json.dumps(split))
+    return split
+
+
+def autotune_check(tr, pose, intr, hw):
+    """autotune_march_shape on the frame's first 4096 tile-ordered rays with
+    three candidates: the ladders of 8, 9 and 10 anchor runs over the
+    planned ladder; it must return one of them."""
+    from nerfnav_tpu_torch.ops import marching as tm
+
+    with torch.no_grad():
+        ro, rd, _ = tr._frame_rays(pose, intr, hw, hw, tr.rcfg.max_ray_batch, None)
+        mcfg, occ = tr._frame_march(intr, hw, hw, rd)
+        t_base = mcfg.t_a0_steps or tm.full_ladder_steps(mcfg)
+        cands = [(max(2, -(-t_base // r)), r * max(2, -(-t_base // r))) for r in (8, 9, 10)]
+        best, res = tm.autotune_march_shape(occ, mcfg, ro, rd, chunk=4096, iters=3,
+                                            candidates=cands)
+    out = {"candidates_g_a_t_a0_ms": res, "best": [best.phase_a_group, best.t_a0_steps]}
+    log("autotune_march_shape, 4096 rays:", json.dumps(out))
+    check((best.phase_a_group, best.t_a0_steps) in cands, f"autotune returned {out['best']}")
+    return out
+
+
+def debounce_vs_cpu(tr, device):
+    """Two sweeps of _finish_update under occ_debounce on this device and on
+    the CPU from the same grid, pending plane and sweep values: bitfield,
+    block tables and pending plane equal. The values sit on a 1/16 lattice
+    with a mean over density_thresh, so the carve bar is density_thresh
+    itself on both devices (a mean summed in another order would move it)."""
+    import dataclasses
+
+    from nerfnav_tpu_torch.models.occupancy import _finish_update
+    from nerfnav_tpu_torch.ops.morton import packbits, unpackbits
+
+    cfg = dataclasses.replace(tr.occupancy_cfg, occ_debounce=True)
+    rng = np.random.default_rng(8)
+    shape = tuple(tr.occupancy["density_grid"].shape)
+
+    def lattice(scale):
+        v = (np.round(rng.exponential(scale, shape) * 16) / 16).astype(np.float32)
+        return torch.as_tensor(v)
+
+    grid = lattice(16.0)
+    grid[torch.as_tensor(rng.random(shape) < 0.05)] = -1.0
+    state = {"density_grid": grid, "bitfield": packbits(grid > cfg.density_thresh),
+             "pending": torch.as_tensor(rng.random(shape) < 0.3),
+             "iter_density": torch.zeros((), dtype=torch.int64)}
+    states = {"cpu": state, "dev": {k: v.to(device) for k, v in state.items()}}
+    out = []
+    for sweep in range(2):
+        tmp = lattice(16.0)
+        tmp[torch.as_tensor(rng.random(shape) < 0.5)] = -1.0
+        for k, st in states.items():
+            t = tmp.to(st["density_grid"].device)
+            states[k] = _finish_update(st, cfg, st["density_grid"], t)
+        c, d = states["cpu"], {k: v.cpu() for k, v in states["dev"].items()}
+        rec = {"sweep": sweep + 1, "mean_density": [float(d["mean_density"]),
+                                                    float(c["mean_density"])],
+               "occupied": int(unpackbits(c["bitfield"]).sum()),
+               "pending": int(c["pending"].sum()),
+               # cells over the bar that the filter keeps off
+               "held_back": int((c["density_grid"] > cfg.density_thresh).sum())
+               - int(unpackbits(c["bitfield"]).sum())}
+        for k in ("bitfield", "bitfield_coarse", "blocks", "blocks_coarse", "pending"):
+            check(torch.equal(d[k], c[k]), f"debounce sweep {sweep + 1}: {k} differs")
+        check(min(rec["mean_density"]) > cfg.density_thresh,
+              f"the carve bar is not pinned: {rec['mean_density']}")
+        out.append(rec)
+    log("occ_debounce, two sweeps, this device vs the CPU:", json.dumps(out))
+    return out
+
+
+def mesh_checks(tr, device, sizes):
+    """save_mesh at sizes["mesh_res"] on the trained field (the fused
+    kernel, one launch per 2^16 lattice points) at the level of its 99.9th
+    percentile on the 64^3 lattice, and
+    extract_geometry at resolution 64 with xla fp32 MLPs on this device and
+    on the CPU: equal vertex and face counts, vertices within 1e-4. The
+    latter's level sits in the widest gap between the CPU lattice's values
+    in their 99.0-99.8th percentiles, so no lattice value is within float32
+    noise of it; "flips" counts the lattice points the two devices put on
+    different sides."""
+    import dataclasses
+
+    from nerfnav_tpu_torch.models.network import density
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+    from nerfnav_tpu_torch.utils.mesh import extract_geometry
+
+    res = sizes["mesh_res"]
+    cpu = torch.device("cpu")
+    cfg32 = dataclasses.replace(tr.cfg, mlp_backend="xla", mlp_dtype="float32")
+    params = {k: [t.detach() for t in v] for k, v in tr.state.ema_params.items()}
+    params_cpu = {k: [t.cpu() for t in v] for k, v in params.items()}
+    fns = {"dev": (lambda x: density(params, x, cfg32)["sigma"], device),
+           "cpu": (lambda x: density(params_cpu, x, cfg32)["sigma"], cpu)}
+    _, _, field = extract_geometry(fns["cpu"][0], tr.cfg.bound, resolution=64,
+                                   threshold=0.0, device=cpu)
+    # a level over which the densest 0.1% of the 64^3 lattice lies: a few
+    # blobs of the briefly trained field, not a surface through its noise
+    level = float(np.quantile(field, 0.999))
+    fm.fused_mlp.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    path = tr.save_mesh(os.path.join(OPT_DIR, "mesh.ply"), resolution=res, threshold=level)
+    mesh_s = time.perf_counter() - t0
+    launches = fm.fused_mlp.launches
+    with open(path) as f:
+        head = f.read(400).split("end_header")[0].split()
+    n_v, n_f = int(head[head.index("vertex") + 1]), int(head[head.index("face") + 1])
+    out = {"resolution": res, "level": level, "save_mesh_s": mesh_s, "vertices": n_v,
+           "faces": n_f, "fused_launches": launches, "ply_bytes": os.path.getsize(path)}
+    check(n_v > 0 and n_f > 0, f"save_mesh wrote {n_v} vertices and {n_f} faces")
+    if device.type == "cuda":
+        want = -(-res**3 // MESH_N)
+        check(launches == want, f"save_mesh launched the fused MLP {launches} times, not {want}")
+
+    v = np.sort(field.ravel())
+    band = v[len(v) * 990 // 1000 : len(v) * 998 // 1000]
+    gi = int(np.argmax(np.diff(band)))
+    level64 = float((band[gi] + band[gi + 1]) / 2)
+    got = {k: extract_geometry(fn, tr.cfg.bound, resolution=64, threshold=level64, device=dv)
+           for k, (fn, dv) in fns.items()}
+    (vd, fd, gd), (vc, fc, gc) = got["dev"], got["cpu"]
+    out["extract_64"] = {"level": level64, "margin": float(band[gi + 1] - band[gi]) / 2,
+                         "field_max_abs": float(np.abs(gd - gc).max()),
+                         "flips": int(((gd > level64) != (gc > level64)).sum()),
+                         "vertices": [len(vd), len(vc)], "faces": [len(fd), len(fc)]}
+    check(len(vd) == len(vc) > 0 and len(fd) == len(fc),
+          f"extract_geometry at 64: {out['extract_64']}")
+    out["extract_64"]["vertices_max_abs"] = float(np.abs(vd - vc).max())
+    log("mesh:", json.dumps(out))
+    check(out["extract_64"]["vertices_max_abs"] <= 1e-4, f"vertices {out['extract_64']}")
+    return out
+
+
+def options_phase(device, sizes, card):
+    """The remaining march and occupancy options and the mesh export on the
+    training phase's trained field (see the module docstring). Returns the
+    fields the kernels line carries."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    phase_t0 = time.perf_counter()
+    took_s = {}
+
+    def stamp(what):
+        took_s[what] = time.perf_counter() - phase_t0 - sum(took_s.values())
+
+    hw = sizes["hw"]
+    tr = options_trainer(device, sizes)
+    pose = yaw_pose(0.0)
+    intr = np.asarray([1000.0 * hw / 800, 1000.0 * hw / 800, hw / 2, hw / 2], np.float32)
+    frames, images = option_frames(tr, pose, intr, hw, device)
+    stamp("frames")
+    check(torch.equal(images["frame_phase_a"], images["baseline"]),
+          "the frame-level phase A renders another image than the per-chunk march")
+    frame_split_check(tr, pose, intr, hw)
+    stamp("frame_split")
+    cpu = torch.device("cpu")
+    tr_cpu = make_trainer(cpu, sizes,
+                          params={k: [t.detach().cpu() for t in v] for k, v in tr.params.items()},
+                          occupancy={k: v.cpu() for k, v in tr.occupancy.items()},
+                          density_scale=1.0)
+    crop_vs_cpu(tr, tr_cpu, pose, intr, hw, device)
+    del tr_cpu
+    stamp("crop_vs_cpu")
+    stages = march_stage_split(tr, pose, intr, hw, device)
+    stamp("stage_split")
+    autotune_check(tr, pose, intr, hw)
+    stamp("autotune")
+    debounce_vs_cpu(tr, device)
+    stamp("debounce")
+    mesh = mesh_checks(tr, device, sizes)
+    stamp("mesh")
+    shutil.rmtree(OPT_DIR, ignore_errors=True)
+    log(f"options phase: {time.perf_counter() - phase_t0:.1f} s ({card}); s by step",
+        json.dumps(took_s))
+    return {"options_launches_per_frame": {k: v["fused_launches"] for k, v in frames.items()},
+            "mesh_launches": mesh["fused_launches"], "march_stages_ms": stages}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2068,14 +2538,14 @@ def main():
         device = torch.device("cpu")
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
                  "rays": 512, "nav": NAV_SIZES["rehearsal"], "ref": REF_SIZES["rehearsal"],
-                 "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32}
+                 "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32, "mesh_res": 32}
     else:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
         device = torch.device("cuda")
         sizes = {"hw": 800, "grid": 128, "log2": 17, "frames": 3, "mlp_n": 32768,
                  "rays": 4096, "nav": NAV_SIZES["card"], "ref": REF_SIZES["card"],
-                 "bg": BG_SIZES["card"], "dense_n": 4096 * 512}
+                 "bg": BG_SIZES["card"], "dense_n": 4096 * 512, "mesh_res": 256}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
@@ -2101,6 +2571,7 @@ def main():
     nav_launches = nav_phase(device, sizes, card)
     ref_launches = reference_phase(device, sizes, card)
     bg_launches = bg_phase(device, sizes, card)
+    opt_out = options_phase(device, sizes, card)
     entry = {"name": "fused_mlp", "route": "cuda",
              "source": "nerfnav_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "nerfnav_tpu/ops/fused_mlp.py:58",
@@ -2109,7 +2580,8 @@ def main():
              "bound_ms": mlp["bound_ms"], "bound_by": mlp["bound_by"],
              "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches,
              "nav_launches": nav_launches, **ref_launches,
-             **{k: v for k, v in mlp.items() if k.startswith("bg_")}, **bg_launches}
+             **{k: v for k, v in mlp.items() if k.startswith(("bg_", "mesh_"))},
+             **bg_launches, **opt_out}
     log(json.dumps({"kernels": [entry]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)

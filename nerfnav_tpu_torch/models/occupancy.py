@@ -4,10 +4,12 @@ Counterpart of nerfnav_tpu/models/occupancy.py: the config, the state dict
 the marcher reads (uint32 block words carried in int64 tensors,
 ops/morton.py), the density sweeps of `update_extra_state` (full for the
 first n_full_updates, then partial), `_finish_update` with its options,
-`mark_untrained_grid` and `reset_extra_state`. The sweeps' random draws
-(jitter, uniform and occupied cells) are explicit tensors (`UpdateDraws`,
-made by `draw_update`), so a test can inject the JAX package's draws.
-`occ_debounce` raises (ROADMAP A5).
+`mark_untrained_grid` and `reset_extra_state`. With `occ_debounce` the
+state carries a "pending" plane (bool (cascades, H^3)) and a cell turns on
+only after two consecutive observed sweeps above the carve bar. The sweeps'
+random draws (jitter, uniform and occupied cells) are explicit tensors
+(`UpdateDraws`, made by `draw_update`), so a test can inject the JAX
+package's draws.
 """
 
 from dataclasses import dataclass
@@ -17,7 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from nerfnav_tpu_torch.device import resolve_device, unported
+from nerfnav_tpu_torch.device import resolve_device
 from nerfnav_tpu_torch.models import network as net
 from nerfnav_tpu_torch.ops.morton import pack_blocks, packbits, unpackbits
 
@@ -54,9 +56,8 @@ def _blocks_supported(cfg: OccupancyConfig) -> bool:
 
 def init_occupancy_state(cfg: OccupancyConfig, device="cuda"):
     """Empty occupancy state: density grids, byte bitfields and (where the
-    grid admits them) the block tables the marcher reads."""
-    if cfg.occ_debounce:
-        raise unported("occ_debounce (activation debounce plane)", "A5")
+    grid admits them) the block tables the marcher reads; with occ_debounce
+    the "pending" plane of cells seen above the bar once."""
     dev = resolve_device(device)
     hc = cfg.grid_size // cfg.coarse_factor
     c = cfg.cascades
@@ -68,6 +69,8 @@ def init_occupancy_state(cfg: OccupancyConfig, device="cuda"):
         "iter_density": torch.zeros((), dtype=torch.int64, device=dev),
         "density_coarse_min": torch.zeros((c, hc**3), dtype=torch.float32, device=dev),
     }
+    if cfg.occ_debounce:
+        state["pending"] = torch.zeros((c, cfg.n_cells), dtype=torch.bool, device=dev)
     if _blocks_supported(cfg):
         bc = 8 if hc % 8 == 0 else 4
         state["blocks"] = torch.zeros(
@@ -162,9 +165,11 @@ def _finish_update(state, cfg: OccupancyConfig, grid, tmp, thresh_cap=None):
     With density_write_clamp and ema_toward_query both on, mean_density
     follows the max-EMA rule while the stored grid follows the mean-EMA
     rule: the reference is inconsistent with itself there (ROADMAP C), and
-    the port copies it."""
-    if cfg.occ_debounce:
-        raise unported("occ_debounce (activation debounce plane)", "A5")
+    the port copies it.
+
+    With occ_debounce an inactive cell turns on only if this sweep and the
+    previous observed one both queried it above the bar; "pending" holds the
+    cells seen above it once, and an unsampled cell keeps its mark."""
     valid = (grid >= 0) & (tmp >= 0) if cfg.ema_sampled_only else grid >= 0
     tmp_stored = tmp
     if cfg.density_write_clamp > 0.0:
@@ -184,6 +189,14 @@ def _finish_update(state, cfg: OccupancyConfig, grid, tmp, thresh_cap=None):
     if thresh_cap is not None:
         thresh = torch.minimum(thresh, torch.as_tensor(thresh_cap, device=grid.device))
     occ = new_grid > thresh
+    new_pending = None
+    if cfg.occ_debounce:
+        prev = unpackbits(state["bitfield"]).reshape(occ.shape)
+        sampled = tmp >= 0
+        tmp_high = sampled & (tmp > thresh)
+        pending = state["pending"]
+        occ = occ & (prev | (tmp_high & pending))
+        new_pending = torch.where(sampled, tmp_high & ~occ, pending & ~occ)
     if cfg.occ_hysteresis > 0.0:
         prev = unpackbits(state["bitfield"]).reshape(occ.shape)
         occ = occ | (prev & (new_grid > cfg.occ_hysteresis * thresh))
@@ -198,6 +211,8 @@ def _finish_update(state, cfg: OccupancyConfig, grid, tmp, thresh_cap=None):
         "mean_density": mean_density,
         "iter_density": state["iter_density"] + 1,
     }
+    if new_pending is not None:
+        out["pending"] = new_pending
     if _blocks_supported(cfg):
         out["blocks"] = pack_blocks(occ, h)
         out["blocks_coarse"] = pack_blocks(occ_coarse, hc, block=8 if hc % 8 == 0 else 4)
@@ -218,7 +233,8 @@ def update_extra_state(state, cfg: OccupancyConfig, params, net_cfg, draws,
 
 
 def reset_extra_state(state, cfg: OccupancyConfig):
-    """A fresh state on the same device (reference renderer.py:113-118)."""
+    """A fresh state on the same device, "pending" cleared too (reference
+    renderer.py:113-118)."""
     return init_occupancy_state(cfg, device=state["density_grid"].device)
 
 

@@ -27,6 +27,7 @@ import torch
 
 from nerfnav_tpu_torch.device import device_const, unported
 from nerfnav_tpu_torch.models import network as net
+from nerfnav_tpu_torch.ops.marching import _excl_trans
 
 
 class Field(NamedTuple):
@@ -163,12 +164,6 @@ def sample_pdf(bins, weights, n_samples: int, u=None):
     bins_a = torch.gather(bins, -1, above)
     denom = torch.where(cdf_a - cdf_b < 1e-5, torch.ones_like(cdf_a), cdf_a - cdf_b)
     return bins_b + (u - cdf_b) / denom * (bins_a - bins_b)
-
-
-def _excl_trans(alphas):
-    """Transmittance before each sample: shifted cumprod of (1 - alpha)."""
-    t = torch.cumprod(1.0 - alphas + 1e-15, dim=-1)
-    return torch.cat([torch.ones_like(t[:, :1]), t[:, :-1]], dim=-1)
 
 
 def composite(sigmas, rgbs, deltas, z_vals, density_scale: float = 1.0):

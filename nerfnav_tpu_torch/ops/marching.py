@@ -1,24 +1,33 @@
-"""Occupancy-grid ray marching: the block-packed two-phase marcher.
+"""Occupancy-grid ray marching: every marcher of the reference.
 
-Counterpart of nerfnav_tpu/ops/marching.py, restricted to the branches the
-eval render and the train step run: `march_rays_block` with the uniform
-(dt_gamma == 0) phase-A ladder, normalized (eval) or fixed (training), or the
-static gamma ladder (dt_gamma > 0), beam-shared phase A (MarchConfig.beam > 1)
-and the exact phase B, without or with a march key (random start, stratified
-or per-ray-hash stride phase), optionally inside a crop AABB.
+Counterpart of nerfnav_tpu/ops/marching.py. `march` dispatches as the
+reference does: the block-packed two-phase marcher `march_rays_block` when
+both block tables exist, else the byte-bitfield two-phase marcher
+`march_rays_two_phase` when a coarse bitfield exists, else the single-phase
+`march_rays`; with `proxy_terminate` the byte marchers' samples are then
+masked behind the proxy transmittance of the min-pooled coarse density (the
+EMA grid where that is missing). `march.calls` counts the marcher each call
+took.
 
-Phase A walks a per-ray ladder of coarse segments against the block-packed
-coarse occupancy table and keeps the first K_A occupied segments; phase B
-subdivides them at dt_min (under dt_gamma, at each segment's own step)
-against the fine block table and keeps the first K occupied samples. Outputs
-(z, dt, valid), each (N, K), match the reference exactly: valid bit for bit,
-z/dt to float32 rounding.
+The block marcher walks phase A (a per-ray ladder of coarse segments; the
+uniform normalized or fixed ladder, the static gamma ladder under dt_gamma,
+optionally behind the phase-A0 block-span prefilter, beam-shared against a
+dilated coarse table) and keeps K_A occupied segments, optionally ends them
+at the proxy transmittance; phase B subdivides them against the fine table
+and keeps K samples (spread by a stride, or the first-K hybrid). A depth
+window narrows [near, far]; `stop_after` returns after phase A or after
+phase B's occupancy test, and `phase_a` takes a frame-wide phase A in
+(Trainer's eval_frame_phase_a). Outputs (z, dt, valid), each (N, K), match
+the reference exactly: valid bit for bit, z/dt to float32 rounding.
+`march_segments` gives each ray's occupied depth extent and
+`autotune_march_shape` times phase-A shapes on the live device.
 
 JAX draws a march's randomness from its key; here it is a `MarchKey` of
 tensors (`draw_march_key` draws one from a torch.Generator), so a test can
-inject the JAX draws. The other marchers (byte bitfields), the phase-A0
-prefilter, first-K and proxy termination and depth windows raise
-NotImplementedError (ROADMAP A6). Its CUDA kernel is ROADMAP B2.
+inject the JAX draws. Every divisor that feeds a floor or an index is a
+device tensor: CUDA divides by a Python scalar as a multiply by its
+reciprocal, which can put a point in the next cell. Its CUDA kernel is
+ROADMAP B2.
 """
 
 from dataclasses import dataclass, replace
@@ -29,7 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import device_const, unported
+from nerfnav_tpu_torch.device import device_const
 from nerfnav_tpu_torch.ops.morton import (
     block_bit_lookup, block_size_of, pack_blocks, unpack_blocks,
 )
@@ -175,6 +184,68 @@ def mip_level(pos, dt, cfg: MarchConfig):
     return torch.clamp(torch.maximum(c_pos, c_dt), max=cfg.cascades - 1)
 
 
+def _cell_index(pos, dt, cfg: MarchConfig):
+    """(cascade, row-major cell index) of each position, int64; the cascade
+    is a plain 0 on a single-cascade grid."""
+    h = cfg.grid_size
+    if cfg.cascades == 1:
+        cas = 0
+        u = pos / device_const(min(1.0, cfg.bound), pos.device)
+    else:
+        cas = mip_level(pos, dt, cfg)
+        cas_bound = torch.clamp(torch.exp2(cas.float()), max=cfg.bound)
+        u = pos / cas_bound[..., None]
+    cell = (torch.clamp(u * 0.5 + 0.5, 0.0, 1.0 - 1e-6) * h).long()
+    return cas, (cell[..., 0] * h + cell[..., 1]) * h + cell[..., 2]
+
+
+def occupancy_lookup(bitfield, pos, dt, cfg: MarchConfig):
+    """Occupancy bits of positions (..., 3) from a (cascades, H^3 / 8) uint8
+    bitfield (row-major cells, little-endian bits); dt is the step that
+    picks the cascade (a number or numpy row for a static ladder, else a
+    tensor broadcastable to pos[..., 0]). Returns bool (...)."""
+    cas, idx = _cell_index(pos, dt, cfg)
+    return ((bitfield[cas, idx >> 3].long() >> (idx & 7)) & 1).bool()
+
+
+def density_lookup(density_grid, pos, dt, cfg: MarchConfig):
+    """The stored density (cascades, H^3) float32 at each position's cell."""
+    cas, idx = _cell_index(pos, dt, cfg)
+    return density_grid[cas, idx]
+
+
+def proxy_terminate_valid(m, rays_o, rays_d, density_grid, cfg: MarchConfig,
+                          grid_size: int | None = None):
+    """The march's valid mask (N, K) with every sample past the point where
+    a proxy transmittance, composited from the stored density at the kept
+    samples, falls under cfg.proxy_thresh masked off (reference
+    marching.py:314-349). grid_size: the table's own side when it is not
+    cfg.grid_size (the min-pooled coarse table)."""
+    cfg_l = cfg if grid_size is None else _with_grid_size(cfg, grid_size)
+    pos = rays_o[:, None, :] + rays_d[:, None, :] * m["z"][..., None]
+    pos = torch.clamp(pos, -cfg.bound, cfg.bound)
+    sig = density_lookup(density_grid, pos, m["dt"], cfg_l)
+    sig = torch.where(m["valid"], torch.clamp(sig, min=0.0), 0.0)
+    return m["valid"] & (_excl_trans(1.0 - torch.exp(-m["dt"] * sig)) > cfg.proxy_thresh)
+
+
+def _excl_trans(alphas):
+    """Transmittance before each sample: shifted cumprod of (1 - alpha)."""
+    t = torch.cumprod(1.0 - alphas + 1e-15, dim=-1)
+    return torch.cat([torch.ones_like(t[:, :1]), t[:, :-1]], dim=-1)
+
+
+def apply_z_window(near, far, z_window):
+    """Narrow [near, far] to a depth window (z_lo, z_hi) of numbers or (N,)
+    tensors; a ray the window excludes gets far == near."""
+    if z_window is None:
+        return near, far
+    z_lo, z_hi = (device_const(z, near.device) if isinstance(z, (int, float)) else z
+                  for z in z_window)
+    near = torch.maximum(near, z_lo)
+    return near, torch.maximum(torch.minimum(far, z_hi), near)
+
+
 def beam_contract_violation(rays_d, cfg: MarchConfig, n_check: int = 4096) -> float:
     """In-beam spread over the full march span, in coarse-cell units (> 1
     means the beam-shared phase A may drop segments). rays_d: numpy or a
@@ -227,14 +298,68 @@ def near_far_aabb(rays_o, rays_d, bound: float, min_near: float, crop_aabb=None)
     return near, far
 
 
-def _compact_idx(occ, k: int, spread: bool = True, phase=None, phase_u=None):
+def _rows(v, n: int, t: int, like):
+    """A per-candidate step as an (N, T) view: v is a number, a numpy row
+    (T,) or a tensor broadcastable to (N, T)."""
+    if isinstance(v, (int, float)):
+        return torch.full((n, t), float(v), device=like.device)
+    if isinstance(v, np.ndarray):
+        v = device_const(v.tolist(), like.device)
+    return v.expand(n, t)
+
+
+def _compact_first_k(occ, z, dtv, k: int, spread: bool = True, phase=None,
+                     first_frac: float | None = None, phase_u=None):
+    """Keep k of each ray's True candidates (see _compact_idx; first_frac
+    selects the first-K hybrid) and gather their z and dt (dt times the
+    stride). occ, z (N, T); dtv per _rows. Returns (z, dt, valid), each
+    (N, k); a lattice shorter than k is padded with empty candidates."""
+    n, t = occ.shape
+    dtv = _rows(dtv, n, t, z)
+    if t < k:
+        pad = k - t
+        occ = torch.nn.functional.pad(occ, (0, pad))
+        z = torch.nn.functional.pad(z, (0, pad))
+        dtv = torch.nn.functional.pad(dtv, (0, pad))
+    if first_frac is not None:
+        idx, valid, stride = _compact_idx_hybrid(occ, k, first_frac, phase=phase,
+                                                 phase_u=phase_u)
+    else:
+        idx, valid, stride = _compact_idx(occ, k, spread, phase=phase, phase_u=phase_u)
+    z_buf = torch.where(valid, torch.gather(z, 1, idx), 0.0)
+    dt_buf = torch.where(valid, torch.gather(dtv, 1, idx) * stride.float(), 0.0)
+    return z_buf, dt_buf, valid
+
+
+def _compact_idx_hybrid(occ, k: int, frac: float, phase=None, phase_u=None):
+    """The first-K hybrid (MarchConfig.first_k): the first round(frac * k)
+    occupied candidates at full resolution, the rest of the budget spread
+    by a stride over the candidates past them, its phase aligned to the end
+    of the span. Returns (idx (N, k), valid (N, k), stride (N, k))."""
+    n, _ = occ.shape
+    k_front = max(1, min(k, int(round(k * frac))))
+    k_tail = k - k_front
+    idx_f, valid_f, _ = _compact_idx(occ, k_front, spread=False)
+    ones_f = torch.ones((n, k_front), dtype=torch.int64, device=occ.device)
+    if k_tail == 0:
+        return idx_f, valid_f, ones_f
+    occ_tail = occ & (torch.cumsum(occ.long(), dim=1) > k_front)
+    idx_t, valid_t, stride_t = _compact_idx(occ_tail, k_tail, spread=True, phase=phase,
+                                            align_end=True, phase_u=phase_u)
+    return (torch.cat([idx_f, idx_t], dim=1), torch.cat([valid_f, valid_t], dim=1),
+            torch.cat([ones_f, stride_t.expand(n, k_tail)], dim=1))
+
+
+def _compact_idx(occ, k: int, spread: bool = True, phase=None, phase_u=None,
+                 align_end: bool = False):
     """Keep k of each ray's True candidates under a static budget.
 
     occ: (N, T) bool. Returns (idx (N, k) int64 positions of the kept
     candidates, valid (N, k) bool, stride (N, 1) int64 dt scale). With more
     than k candidates every stride-th is kept, stride = ceil(count / k),
     starting at the stride phase: phase_u (N,) uniform in [0, 1) gives
-    floor(u * stride), phase (N, 1) raw draws give phase % stride, else 0."""
+    floor(u * stride), phase (N, 1) raw draws give phase % stride, else
+    align_end keeps each ray's last candidate, else the phase is 0."""
     n, t = occ.shape
     cs = torch.cumsum(occ.long(), dim=1)
     stride = torch.ones((n, 1), dtype=torch.int64, device=occ.device)
@@ -245,6 +370,8 @@ def _compact_idx(occ, k: int, spread: bool = True, phase=None, phase_u=None):
             start = torch.minimum((phase_u[:, None] * stride.float()).long(), stride - 1)
         elif phase is not None:
             start = phase % stride
+        elif align_end:
+            start = (torch.clamp(cnt, min=1) - 1) % stride
         else:
             start = 0
         occ = occ & ((cs - 1) % stride == start)
@@ -380,6 +507,59 @@ def plan_gamma_span(occ_grids, cfg: MarchConfig, pad_cells: int = 1) -> float:
     return float(min(span + cfg.dt_min + cap, full))
 
 
+def autotune_march_shape(occupancy, cfg: MarchConfig, rays_o, rays_d, chunk: int = 4096,
+                         iters: int = 3, candidates=None, verbose: bool = False):
+    """Time the march of the first `chunk` rays (spatially coherent order
+    preferred) at each phase-A shape (g_a, t_a0) and return the fastest:
+    (best_cfg, [(g_a, t_a0, ms), ...]), ms the median of `iters` timed
+    marches after one warm-up (reference marching.py:768-843). On a CUDA
+    device CUDA events time the march, on the CPU the host clock.
+    candidates defaults to the ladders of 8, 9 and 10 anchor runs that cover
+    the occupancy-planned span (the auto ladder when nothing is occupied)
+    and the heuristic shape. occupancy must hold the block tables."""
+    import time
+
+    if not (isinstance(occupancy, dict) and occupancy.get("blocks") is not None):
+        raise ValueError("autotune_march_shape needs block occupancy tables")
+    ro, rd = rays_o[:chunk], rays_d[:chunk]
+    if candidates is None:
+        cap = _phase_a_cap(cfg) if cfg.coarse_normalized else cfg.dt_min * cfg.coarse_step_mult
+        auto = int(np.ceil(2.0 * _SQRT3 * max(cfg.bound, 1.0) / cap))
+        occ_host = np.unpackbits(occupancy["bitfield"].cpu().numpy(), axis=-1,
+                                 bitorder="little")
+        t_base = plan_occupied_ladder(occ_host, cfg) or auto
+        candidates = [(max(2, -(-t_base // runs)), runs * max(2, -(-t_base // runs)))
+                      for runs in (8, 9, 10)]
+        g_inc = max(1, min(phase_a_group_of(cfg), -(-t_base // 8)))
+        candidates.append((g_inc, -(-t_base // g_inc) * g_inc))
+        candidates = list(dict.fromkeys(candidates))
+    cuda = ro.device.type == "cuda"
+    results = []
+    for g_a, t_a0 in candidates:
+        cfg_c = replace(cfg, phase_a_group=g_a, t_a0_steps=t_a0)
+        march(ro, rd, occupancy, cfg_c)
+        ts = []
+        for _ in range(iters):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                march(ro, rd, occupancy, cfg_c)
+                end.record()
+                end.synchronize()
+                ts.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                march(ro, rd, occupancy, cfg_c)
+                ts.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(ts)[len(ts) // 2]
+        results.append((g_a, t_a0, ms))
+        if verbose:
+            print(f"autotune g_a={g_a} t_a0={t_a0}: {ms:.2f} ms")
+    g_b, t_b, _ = min(results, key=lambda r: r[2])
+    return replace(cfg, phase_a_group=g_b, t_a0_steps=t_b), results
+
+
 def _with_grid_size(cfg: MarchConfig, grid_size: int) -> MarchConfig:
     return cfg if cfg.grid_size == grid_size else replace(cfg, grid_size=grid_size)
 
@@ -440,19 +620,70 @@ def dilate_blocks_coarse(blocks_coarse, hc: int, bc: int):
     return pack_blocks(g.reshape(casc, -1), hc, block=bc)
 
 
-def _check_block_options(cfg: MarchConfig, z_window, stop_after, phase_a):
-    if cfg.a0_segments > 0 and cfg.coarse_normalized:
-        raise unported("a0_segments (phase-A0 prefilter)", "A6")
-    if cfg.proxy_terminate:
-        raise unported("proxy_terminate", "A6")
-    if cfg.first_k:
-        raise unported("first_k compaction", "A6")
-    if cfg.coarse_first_k:
-        raise unported("coarse_first_k compaction", "A6")
-    if z_window is not None:
-        raise unported("z_window", "A6")
-    if stop_after or phase_a is not None:
-        raise unported("phase_a / stop_after (frame-level phase-A split)", "A6")
+def _min_pool_coarse(dmin, hc: int):
+    """3^3 min-pool of a (cascades, hc^3) density table, out-of-grid
+    neighbours ignored: the proxy table of a beam-shared march."""
+    casc = dmin.shape[0]
+    g = dmin.reshape(casc, 1, hc, hc, hc)
+    return -torch.nn.functional.max_pool3d(-g, 3, stride=1, padding=1).reshape(dmin.shape)
+
+
+def _terminate_segments(za_buf, dta_buf, valid_a, o, d, table, dt_a_max, cfg, hc):
+    """Segment-level proxy termination (reference marching.py:1290-1333): the
+    kept segments' valid mask with every segment past the point where the
+    transmittance through the min-pooled coarse density at the segments'
+    midpoints falls under cfg.proxy_thresh masked off."""
+    pos = o[:, None, :] + d[:, None, :] * (za_buf + 0.5 * dta_buf)[..., None]
+    sig = density_lookup(table, pos, dt_a_max, _with_grid_size(cfg, hc))
+    sig = torch.where(valid_a, torch.clamp(sig, min=0.0), 0.0)
+    return valid_a & (_excl_trans(1.0 - torch.exp(-dta_buf * sig)) > cfg.proxy_thresh)
+
+
+def _phase_a0(oA, dA, nearA, farA, tbl_coarse, cfg, hc, bc, sb_world, dt_a_max):
+    """The phase-A0 prefilter (MarchConfig.a0_segments, reference
+    marching.py:1200-1263): a ladder at one coarse-block edge against "any
+    cell of the block occupied" keeps a0_segments block spans; phase A's
+    cell-exact test runs only inside them, each span subdivided into mult0
+    segments. A span the A0 compaction widened by its stride is occupied
+    throughout (its subdivision would step over cells). Returns phase A's
+    (za_buf, dta_buf, valid_a), each (N_A, K_A)."""
+    n_a = oA.shape[0]
+    dev = oA.device
+    any_tbl = (tbl_coarse != 0).any(dim=-1)
+    dt_a0 = 0.98 * sb_world
+    t_a0 = int(np.ceil(2.0 * _SQRT3 * max(cfg.bound, 1.0) / dt_a0))
+    z_a0 = nearA[:, None] + torch.arange(t_a0, dtype=torch.float32, device=dev) * dt_a0
+    pos_a0 = oA[:, None, :] + dA[:, None, :] * z_a0[..., None]
+    flat_a0, _ = _block_coords(pos_a0, dt_a0, hc, cfg, block=bc)
+    occ_a0 = _kept_segments(any_tbl[flat_a0], z_a0, farA)
+    k_a0 = cfg.a0_segments
+    idx_a0, valid_a0, stride_a0 = _compact_idx(occ_a0, k_a0)
+    z0_buf = torch.where(valid_a0, nearA[:, None] + idx_a0 * dt_a0, 0.0)
+    dt0_buf = torch.where(valid_a0, dt_a0 * stride_a0.float(), 0.0)
+
+    # mult0 + 1 test points per span (the last closes the endpoint pair at
+    # the span's end); a span is one coarse block, so its end anchors cover
+    # its rows
+    mult0 = int(np.ceil(dt_a0 / dt_a_max - 1e-6))
+    sub0 = dt0_buf[:, :, None] / device_const(float(mult0), dev)
+    jj = torch.arange(mult0 + 1, dtype=torch.float32, device=dev)
+    z_t = z0_buf[:, :, None] + jj * sub0
+    pos_t = oA[:, None, None, :] + dA[:, None, None, :] * z_t[..., None]
+    dt_t = sub0.expand(z_t.shape).reshape(n_a, -1)
+    flat_t, local_t = _block_coords(pos_t.reshape(n_a, -1, 3), dt_t, hc, cfg, block=bc)
+    occ_t = _grouped_block_test(tbl_coarse, flat_t, local_t, mult0 + 1,
+                                anchors=[0, mult0]).reshape(n_a, k_a0, mult0 + 1)
+    occ_a = (occ_t[:, :, :-1] | occ_t[:, :, 1:]) | (stride_a0[:, :, None] > 1)
+    occ_a = occ_a & valid_a0[:, :, None] & (z_t[:, :, :-1] < farA[:, None, None])
+    idx_a, valid_a, stride_a = _compact_idx(occ_a.reshape(n_a, k_a0 * mult0),
+                                            cfg.coarse_segments)
+    seg0 = idx_a // mult0
+    off0 = (idx_a % mult0).float()
+    z0_sel = _select_minor(z0_buf, seg0, k_a0)
+    sub0_sel = _select_minor(sub0[:, :, 0], seg0, k_a0)
+    za_buf = torch.where(valid_a, z0_sel + off0 * sub0_sel, 0.0)
+    dta_buf = torch.where(valid_a, sub0_sel * stride_a.float(), 0.0)
+    return za_buf, dta_buf, valid_a
 
 
 def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
@@ -463,15 +694,23 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
 
     blocks: (cascades, (H/4)^3, 2) int64 words; blocks_coarse: (cascades,
     (H/cf/bc)^3, bc^3/32) int64 words; key: a MarchKey or None; crop_aabb: a
-    (6,) tensor or None. Returns {"z", "dt", "valid", "near", "far"} with
-    (N, K) samples.
+    (6,) tensor or None; z_window: (z_lo, z_hi) numbers or (N,) tensors.
+    Returns {"z", "dt", "valid", "near", "far"} with (N, K) samples.
 
     dt_gamma > 0: phase A walks MarchConfig.coarse_gamma_ladder, a static
     ladder whose step grows with the distance from the cube entry, and
     phase B subdivides each kept segment by its own step, so the fine test's
     cascade follows that step (reference marching.py:1063-1082, 1164-1199,
-    1359-1364)."""
-    _check_block_options(cfg, z_window, stop_after, phase_a)
+    1359-1364).
+
+    stop_after="phase_a" returns phase A's kept segments (N, K_A), after
+    the beam broadcast; "phase_b_occ" returns phase B's candidates (N, K_A
+    * mult) with their occupancy as "valid" and zero dt. phase_a: a dict of
+    those segments ("z", "dt", "valid") from a frame-wide stop_after march
+    of the same rays; phase A is then skipped. It needs dt_gamma == 0, and
+    under cfg.beam > 1 an N that divides by the beam (the members' mask
+    needs the beam width): the reference skips that mask there instead of
+    raising (ROADMAP C)."""
     gamma = cfg.dt_gamma > 0.0
     n = rays_o.shape[0]
     h = cfg.grid_size
@@ -509,61 +748,26 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
             g_b = d
 
     near, far = near_far_aabb(rays_o, rays_d, cfg.bound, cfg.min_near, crop_aabb)
+    near, far = apply_z_window(near, far, z_window)
     if key is not None:
         near = near + key.u * dt
     k_a = cfg.coarse_segments
-    tbl_coarse = blocks_coarse.reshape(-1, blocks_coarse.shape[-1])
 
-    # beam sharing: phase A runs once per beam of mB consecutive rays against
-    # the 1-cell-dilated coarse table; the kept segments go to every member
     mB = cfg.beam if (cfg.beam > 1 and n % cfg.beam == 0) else 1
-    oA, dA, nearA, farA = rays_o, rays_d, near, far
-    if mB > 1:
-        nA = n // mB
-        oA = rays_o.reshape(nA, mB, 3)[:, 0]
-        dm = rays_d.reshape(nA, mB, 3).sum(dim=1)
-        dA = dm / torch.clamp(torch.sqrt((dm * dm).sum(-1, keepdim=True)), min=1e-12)
-        nearA = near.reshape(nA, mB).amin(dim=1)
-        farA = far.reshape(nA, mB).amax(dim=1)
-        if blocks_coarse_dilated is None:
-            blocks_coarse_dilated = dilate_blocks_coarse(blocks_coarse, hc, bc)
-        tbl_coarse = blocks_coarse_dilated.reshape(-1, blocks_coarse.shape[-1])
-
-    # ---- phase A: coarse segments
-    anchors_a = [0, g_a - 1] if (cfg.coarse_anchors == 2 and g_a > 1) else None
-    if gamma:
-        # the static ladder, padded to whole anchor runs with far-masked tail
-        # steps at its last step; its steps are small device rows that the
-        # kept indices select from (the reference's unrolled compare-and-
-        # select gives the same values)
-        pad = (-len(taus_np)) % g_a
-        if pad:
-            taus_np = np.concatenate(
-                [taus_np, taus_np[-1] + dtcs_np[-1] * np.arange(1, pad + 1, dtype=np.float32)])
-            dtcs_np = np.concatenate([dtcs_np, np.full(pad, dtcs_np[-1], np.float32)])
-        taus = device_const(taus_np.tolist(), rays_o.device)
-        z_a = nearA[:, None] + taus[None, :]
-        dt_a = dtcs_np
+    if phase_a is not None:
+        if gamma:
+            raise ValueError("phase_a split is unsupported with dt_gamma > 0")
+        if cfg.beam > 1 and mB == 1:
+            raise ValueError(
+                f"phase_a with beam {cfg.beam} needs N divisible by the beam, got {n}: "
+                "the members' z_b >= near mask needs the beam width")
+        za_buf, dta_buf, valid_a = phase_a["z"], phase_a["dt"], phase_a["valid"]
     else:
-        z_a, dt_a, _ = _phase_a_ladder(nearA, farA, cfg, round_to=g_a)
-    pos_a = oA[:, None, :] + dA[:, None, :] * z_a[..., None]
-    flat_a, local_a = _block_coords(pos_a, dt_a, hc, cfg, block=bc)
-    occ_a = _grouped_block_test(tbl_coarse, flat_a, local_a, g_a, anchors=anchors_a)
-    # a segment is kept if EITHER endpoint lands in an occupied coarse cell
-    occ_next = torch.cat([occ_a[:, 1:], torch.zeros_like(occ_a[:, :1])], dim=1)
-    occ_a = (occ_a | occ_next) & (z_a < farA[:, None])
-    idx_a, valid_a, stride_a = _compact_idx(occ_a, k_a)
-    if gamma:
-        dtcs = device_const(dtcs_np.tolist(), rays_o.device)
-        za_buf = torch.where(valid_a, nearA[:, None] + taus[idx_a], 0.0)
-        dta_buf = torch.where(valid_a, dtcs[idx_a] * stride_a.float(), 0.0)
-    else:
-        za_buf = torch.where(valid_a, nearA[:, None] + idx_a * dt_a, 0.0)
-        dta_buf = torch.where(valid_a, dt_a * stride_a.float(), 0.0)
-    if mB > 1:
-        za_buf = za_buf.repeat_interleave(mB, dim=0)
-        dta_buf = dta_buf.repeat_interleave(mB, dim=0)
-        valid_a = valid_a.repeat_interleave(mB, dim=0)
+        za_buf, dta_buf, valid_a = _phase_a(
+            rays_o, rays_d, near, far, blocks_coarse, blocks_coarse_dilated,
+            density_coarse_min, cfg, mB, g_a, hc, bc, sb_world, dt_a_max)
+        if stop_after == "phase_a":
+            return {"z": za_buf, "dt": dta_buf, "valid": valid_a, "near": near, "far": far}
 
     # ---- phase B: fine subdivision of each kept segment
     sub = dta_buf[:, :, None] / device_const(float(mult), rays_o.device)
@@ -580,14 +784,17 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
     if mB > 1:
         # a beam segment can start before this member's own AABB entry
         occ_b = occ_b & (z_b >= near[:, None])
-    phase = phase_u = None
-    if key is not None:
-        if cfg.stride_phase == "ray_hash":
-            phase_u = _ray_hash_u(rays_d)
-        else:
-            phase = key.phase
-    idx_b, valid, stride_b = _compact_idx(occ_b, cfg.samples_per_ray,
-                                          phase=phase, phase_u=phase_u)
+    if stop_after == "phase_b_occ":
+        return {"z": z_b, "dt": torch.zeros_like(z_b), "valid": occ_b,
+                "near": near, "far": far}
+    phase, phase_u = _stride_phase(key, rays_d, cfg)
+    if cfg.first_k:
+        idx_b, valid, stride_b = _compact_idx_hybrid(occ_b, cfg.samples_per_ray,
+                                                     cfg.first_k_frac, phase=phase,
+                                                     phase_u=phase_u)
+    else:
+        idx_b, valid, stride_b = _compact_idx(occ_b, cfg.samples_per_ray,
+                                              phase=phase, phase_u=phase_u)
     seg = idx_b // mult
     off = (idx_b % mult).float()
     za_sel = _select_minor(za_buf, seg, k_a)
@@ -597,17 +804,230 @@ def march_rays_block(rays_o, rays_d, blocks, blocks_coarse, cfg: MarchConfig,
     return {"z": z_buf, "dt": dt_buf, "valid": valid, "near": near, "far": far}
 
 
+def _stride_phase(key, rays_d, cfg: MarchConfig):
+    """(phase, phase_u) for _compact_idx: a keyed march's raw draws, or its
+    per-ray hash under stride_phase "ray_hash"; (None, None) unkeyed."""
+    if key is None:
+        return None, None
+    if cfg.stride_phase == "ray_hash":
+        return None, _ray_hash_u(rays_d)
+    return key.phase, None
+
+
+def _phase_a(rays_o, rays_d, near, far, blocks_coarse, blocks_coarse_dilated,
+             density_coarse_min, cfg: MarchConfig, mB, g_a, hc, bc, sb_world, dt_a_max):
+    """The block marcher's phase A: (za_buf, dta_buf, valid_a), each (N,
+    K_A), the kept coarse segments broadcast to the members of each beam."""
+    n = rays_o.shape[0]
+    k_a = cfg.coarse_segments
+    tbl_coarse = blocks_coarse.reshape(-1, blocks_coarse.shape[-1])
+    # beam sharing: phase A runs once per beam of mB consecutive rays against
+    # the 1-cell-dilated coarse table; the kept segments go to every member
+    oA, dA, nearA, farA = rays_o, rays_d, near, far
+    if mB > 1:
+        nA = n // mB
+        oA = rays_o.reshape(nA, mB, 3)[:, 0]
+        dm = rays_d.reshape(nA, mB, 3).sum(dim=1)
+        dA = dm / torch.clamp(torch.sqrt((dm * dm).sum(-1, keepdim=True)), min=1e-12)
+        nearA = near.reshape(nA, mB).amin(dim=1)
+        farA = far.reshape(nA, mB).amax(dim=1)
+        if blocks_coarse_dilated is None:
+            blocks_coarse_dilated = dilate_blocks_coarse(blocks_coarse, hc, bc)
+        tbl_coarse = blocks_coarse_dilated.reshape(-1, blocks_coarse.shape[-1])
+
+    anchors_a = [0, g_a - 1] if (cfg.coarse_anchors == 2 and g_a > 1) else None
+    if cfg.dt_gamma > 0.0:
+        # the static ladder, padded to whole anchor runs with far-masked tail
+        # steps at its last step; its steps are small device rows that the
+        # kept indices select from (the reference's unrolled compare-and-
+        # select gives the same values)
+        taus_np, dtcs_np = cfg.coarse_gamma_ladder
+        pad = (-len(taus_np)) % g_a
+        if pad:
+            taus_np = np.concatenate(
+                [taus_np, taus_np[-1] + dtcs_np[-1] * np.arange(1, pad + 1, dtype=np.float32)])
+            dtcs_np = np.concatenate([dtcs_np, np.full(pad, dtcs_np[-1], np.float32)])
+        taus = device_const(taus_np.tolist(), rays_o.device)
+        z_a = nearA[:, None] + taus[None, :]
+        occ_a = _coarse_test(oA, dA, z_a, farA, dtcs_np, tbl_coarse, g_a, anchors_a,
+                             cfg, hc, bc)
+        idx_a, valid_a, stride_a = _compact_idx(occ_a, k_a)
+        dtcs = device_const(dtcs_np.tolist(), rays_o.device)
+        za_buf = torch.where(valid_a, nearA[:, None] + taus[idx_a], 0.0)
+        dta_buf = torch.where(valid_a, dtcs[idx_a] * stride_a.float(), 0.0)
+    elif cfg.a0_segments > 0 and cfg.coarse_normalized:
+        za_buf, dta_buf, valid_a = _phase_a0(oA, dA, nearA, farA, tbl_coarse, cfg, hc,
+                                             bc, sb_world, dt_a_max)
+    else:
+        z_a, dt_a, _ = _phase_a_ladder(nearA, farA, cfg, round_to=g_a)
+        occ_a = _coarse_test(oA, dA, z_a, farA, dt_a, tbl_coarse, g_a, anchors_a, cfg,
+                             hc, bc)
+        if cfg.coarse_first_k:
+            idx_a, valid_a, stride_a = _compact_idx_hybrid(occ_a, k_a, cfg.first_k_frac)
+        else:
+            idx_a, valid_a, stride_a = _compact_idx(occ_a, k_a)
+        za_buf = torch.where(valid_a, nearA[:, None] + idx_a * dt_a, 0.0)
+        dta_buf = torch.where(valid_a, dt_a * stride_a.float(), 0.0)
+
+    if cfg.proxy_terminate and density_coarse_min is not None:
+        # the beam ray's transmittance must hold for every member: under a
+        # beam the table is min-pooled over the dilation's neighbourhood
+        table = _min_pool_coarse(density_coarse_min, hc) if mB > 1 else density_coarse_min
+        valid_a = _terminate_segments(za_buf, dta_buf, valid_a, oA, dA, table, dt_a_max,
+                                      cfg, hc)
+    if mB > 1:
+        za_buf = za_buf.repeat_interleave(mB, dim=0)
+        dta_buf = dta_buf.repeat_interleave(mB, dim=0)
+        valid_a = valid_a.repeat_interleave(mB, dim=0)
+    return za_buf, dta_buf, valid_a
+
+
+def _coarse_test(o, d, z_a, far, dt_a, tbl_coarse, g_a, anchors, cfg, hc, bc):
+    """Phase A's segments to keep on the ladder z_a (N, T), tested against
+    the block-packed coarse table."""
+    pos_a = o[:, None, :] + d[:, None, :] * z_a[..., None]
+    flat_a, local_a = _block_coords(pos_a, dt_a, hc, cfg, block=bc)
+    return _kept_segments(_grouped_block_test(tbl_coarse, flat_a, local_a, g_a,
+                                              anchors=anchors), z_a, far)
+
+
+def _kept_segments(occ, z, far):
+    """Segments [z_i, z_i+1) of a ladder (N, T) to keep: either endpoint
+    tests occupied, and the segment starts before far."""
+    occ_next = torch.cat([occ[:, 1:], torch.zeros_like(occ[:, :1])], dim=1)
+    return (occ | occ_next) & (z < far[:, None])
+
+
+def march_rays(rays_o, rays_d, bitfield, cfg: MarchConfig, key=None, crop_aabb=None,
+               z_window=None):
+    """Single-phase march: the whole step ladder (MarchConfig.ladder) tested
+    against the byte bitfield, the first K occupied candidates kept (spread
+    by a stride, or the first-K hybrid). Returns {"z", "dt", "valid", "near",
+    "far"} with (N, K) samples (reference marching.py:1405-1442)."""
+    taus_np, dts_np = cfg.ladder
+    near, far = near_far_aabb(rays_o, rays_d, cfg.bound, cfg.min_near, crop_aabb)
+    near, far = apply_z_window(near, far, z_window)
+    if key is not None:
+        near = near + key.u * cfg.dt_min
+    z = near[:, None] + device_const(taus_np.tolist(), rays_o.device)[None, :]
+    pos = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    occ = occupancy_lookup(bitfield, pos, dts_np, cfg) & (z < far[:, None])
+    phase, phase_u = _stride_phase(key, rays_d, cfg)
+    z_buf, dt_buf, valid = _compact_first_k(
+        occ, z, dts_np, cfg.samples_per_ray, phase=phase,
+        first_frac=cfg.first_k_frac if cfg.first_k else None, phase_u=phase_u)
+    return {"z": z_buf, "dt": dt_buf, "valid": valid, "near": near, "far": far}
+
+
+def march_rays_two_phase(rays_o, rays_d, bitfield, bitfield_coarse, cfg: MarchConfig,
+                         key=None, crop_aabb=None, z_window=None):
+    """Two-phase march against byte bitfields: phase A walks the coarse
+    ladder (normalized, fixed, or the static gamma ladder under dt_gamma)
+    against the coarse bitfield and keeps K_A segments; phase B subdivides
+    them against the fine bitfield and keeps K samples (reference
+    marching.py:846-929)."""
+    n = rays_o.shape[0]
+    dev = rays_o.device
+    dt = cfg.dt_min
+    gamma = cfg.dt_gamma > 0.0
+    near, far = near_far_aabb(rays_o, rays_d, cfg.bound, cfg.min_near, crop_aabb)
+    near, far = apply_z_window(near, far, z_window)
+    if key is not None:
+        near = near + key.u * dt
+    cfg_coarse = _with_grid_size(cfg, cfg.grid_size // cfg.coarse_factor)
+    if gamma:
+        taus_np, dt_a = cfg.coarse_gamma_ladder
+        z_a = near[:, None] + device_const(taus_np.tolist(), dev)[None, :]
+    else:
+        z_a, dt_a, _ = _phase_a_ladder(near, far, cfg)
+    pos_a = rays_o[:, None, :] + rays_d[:, None, :] * z_a[..., None]
+    occ_a = _kept_segments(occupancy_lookup(bitfield_coarse, pos_a, dt_a, cfg_coarse),
+                           z_a, far)
+    za_buf, dta_buf, valid_a = _compact_first_k(occ_a, z_a, dt_a, cfg.coarse_segments)
+
+    # phase B over each kept segment's (possibly stride-scaled) length
+    mult = cfg.coarse_step_mult
+    k_a = cfg.coarse_segments
+    sub = dta_buf[:, :, None] / device_const(float(mult), dev)
+    offs = torch.arange(mult, dtype=torch.float32, device=dev)
+    z_b = (za_buf[:, :, None] + offs[None, None, :] * sub).reshape(n, -1)
+    dt_fine = sub.expand(n, k_a, mult).reshape(n, -1)
+    pos_b = rays_o[:, None, :] + rays_d[:, None, :] * z_b[..., None]
+    occ_b = occupancy_lookup(bitfield, pos_b, dt_fine if gamma else dt, cfg)
+    valid_ab = valid_a[:, :, None].expand(n, k_a, mult).reshape(n, -1)
+    occ_b = occ_b & valid_ab & (z_b < far[:, None])
+    phase, phase_u = _stride_phase(key, rays_d, cfg)
+    z_buf, dt_buf, valid = _compact_first_k(
+        occ_b, z_b, dt_fine, cfg.samples_per_ray, phase=phase,
+        first_frac=cfg.first_k_frac if cfg.first_k else None, phase_u=phase_u)
+    return {"z": z_buf, "dt": dt_buf, "valid": valid, "near": near, "far": far}
+
+
+def march_segments(rays_o, rays_d, occupancy, cfg: MarchConfig, crop_aabb=None):
+    """Each ray's occupied depth extent from phase A alone, on the whole
+    uncompacted coarse ladder: {"z_first", "z_last", "hit"}, each (N,).
+    Needs occupancy["bitfield_coarse"] (reference marching.py:1445-1483)."""
+    coarse = occupancy.get("bitfield_coarse") if isinstance(occupancy, dict) else None
+    if coarse is None:
+        raise ValueError(
+            "march_segments needs occupancy['bitfield_coarse']: the fine bitfield "
+            "alone cannot be probed safely at coarse ladder steps")
+    near, far = near_far_aabb(rays_o, rays_d, cfg.bound, cfg.min_near, crop_aabb)
+    z_a, dt_a, _ = _phase_a_ladder(near, far, cfg)
+    pos_a = rays_o[:, None, :] + rays_d[:, None, :] * z_a[..., None]
+    occ_a = _kept_segments(occupancy_lookup(
+        coarse, pos_a, dt_a, _with_grid_size(cfg, cfg.grid_size // cfg.coarse_factor)),
+        z_a, far)
+    dt_b = _rows(dt_a, *z_a.shape, z_a)
+    inf = torch.full_like(z_a, math.inf)
+    return {"z_first": torch.where(occ_a, z_a, inf).amin(dim=1),
+            "z_last": torch.where(occ_a, z_a + dt_b, -inf).amax(dim=1),
+            "hit": occ_a.any(dim=1)}
+
+
 def march(rays_o, rays_d, occupancy, cfg: MarchConfig, key=None, crop_aabb=None,
           z_window=None, stop_after: str = "", phase_a=None):
-    """Dispatch to the block marcher; occupancy is a dict with "blocks" and
-    "blocks_coarse" (and optionally "blocks_coarse_dilated")."""
-    if not (isinstance(occupancy, dict) and occupancy.get("blocks") is not None
-            and occupancy.get("blocks_coarse") is not None):
-        raise unported("marching without block occupancy tables "
-                       "(byte-bitfield marchers)", "A6")
-    return march_rays_block(
-        rays_o, rays_d, occupancy["blocks"], occupancy["blocks_coarse"], cfg,
-        key, density_coarse_min=occupancy.get("density_coarse_min"),
-        crop_aabb=crop_aabb, z_window=z_window, stop_after=stop_after,
-        blocks_coarse_dilated=occupancy.get("blocks_coarse_dilated"),
-        phase_a=phase_a)
+    """Dispatch as the reference does (marching.py:1486-1537): the block
+    marcher when occupancy holds both block tables, else the byte two-phase
+    marcher when it holds "bitfield_coarse", else the single-phase one.
+    occupancy: an occupancy-state dict or a bare (cascades, H^3 / 8)
+    bitfield. Under cfg.proxy_terminate the byte marchers' samples are then
+    masked by proxy_terminate_valid on "density_coarse_min" (conservative),
+    else on "density_grid"; the block marcher ends its segments itself.
+    Adds one to march.calls[name] of the marcher it took."""
+    if isinstance(occupancy, dict):
+        bitfield = occupancy["bitfield"]
+        get = occupancy.get
+    else:
+        bitfield, get = occupancy, {}.get
+    blocks, blocks_coarse = get("blocks"), get("blocks_coarse")
+    if blocks is not None and blocks_coarse is not None:
+        march.calls["block"] += 1
+        return march_rays_block(
+            rays_o, rays_d, blocks, blocks_coarse, cfg, key,
+            density_coarse_min=get("density_coarse_min"), crop_aabb=crop_aabb,
+            z_window=z_window, stop_after=stop_after,
+            blocks_coarse_dilated=get("blocks_coarse_dilated"), phase_a=phase_a)
+    if stop_after or phase_a is not None:
+        raise ValueError("stop_after / phase_a need the block marcher's tables")
+    coarse = get("bitfield_coarse")
+    if coarse is not None:
+        march.calls["two_phase"] += 1
+        m = march_rays_two_phase(rays_o, rays_d, bitfield, coarse, cfg, key,
+                                 crop_aabb=crop_aabb, z_window=z_window)
+    else:
+        march.calls["single"] += 1
+        m = march_rays(rays_o, rays_d, bitfield, cfg, key, crop_aabb=crop_aabb,
+                       z_window=z_window)
+    if cfg.proxy_terminate:
+        if get("density_coarse_min") is not None:
+            m = {**m, "valid": proxy_terminate_valid(
+                m, rays_o, rays_d, get("density_coarse_min"), cfg,
+                grid_size=cfg.grid_size // cfg.coarse_factor)}
+        elif get("density_grid") is not None:
+            m = {**m, "valid": proxy_terminate_valid(m, rays_o, rays_d,
+                                                     get("density_grid"), cfg)}
+    return m
+
+
+march.calls = {"block": 0, "two_phase": 0, "single": 0}

@@ -12,9 +12,12 @@ params, the error-map EMA and the mean-count EMA. Every 16 steps
 `_maybe_update_occupancy` sweeps the density grid.
 
 `render_full` renders a frame in chunks through the rounds renderer on
-tile-ordered rays (the grid path), the one-shot grid render
-(`eval_rounds=False`) or the dense render; `evaluate` writes the validation
-images and `test` a camera path's frames, depth maps and video.
+tile-ordered rays (the grid path; with `eval_frame_phase_a`, one frame-wide
+phase A feeds every chunk), the one-shot grid render (`eval_rounds=False`)
+or the dense render, on any occupancy the marcher takes (block tables or
+byte bitfields); `evaluate` writes the validation images, `test` a camera
+path's frames, depth maps and video and `save_mesh` the density's
+iso-surface.
 
 The step is two functions, `loss_and_grads` and `apply`, joined by
 `train_step`. JAX's PRNG streams do not match torch's, so every random draw
@@ -25,8 +28,8 @@ key) and of an occupancy sweep is a tensor argument (`StepDraws`,
 the reference. The reference's compiled programs become eager calls: the
 step cache, `scan_steps` (steps here run one at a time, which the reference
 pins as step-identical), `eval_scan` and `render_full(frozen=...)` have no
-effect. rand_pose / CLIP, device meshes and `save_mesh` raise
-NotImplementedError naming their ROADMAP item.
+effect. rand_pose / CLIP and device meshes raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from dataclasses import dataclass, field, replace
@@ -51,7 +54,7 @@ from nerfnav_tpu_torch.models.renderer import (
     RenderConfig, make_field, render_rays, render_rays_grid, render_rays_grid_rounds,
 )
 from nerfnav_tpu_torch.ops.marching import (
-    MarchKey, beam_contract_violation, dilate_blocks_coarse, draw_march_key,
+    MarchKey, beam_contract_violation, dilate_blocks_coarse, draw_march_key, march,
     phase_a_group_of, plan_gamma_span, plan_occupied_ladder,
 )
 from nerfnav_tpu_torch.ops.morton import block_size_of
@@ -658,10 +661,12 @@ class Trainer:
             return render_grid
         shade_order = self.opt.shade_order
 
-        def render_chunk(params, occupancy, rays_o, rays_d, bg_color, crop_aabb=None):
+        def render_chunk(params, occupancy, rays_o, rays_d, bg_color, crop_aabb=None,
+                         phase_a=None):
             return render_rays_grid_rounds(
                 make_field(params, cfg), occupancy, mcfg, rays_o, rays_d,
-                bg_color=bg_color, crop_aabb=crop_aabb, shade_order=shade_order)
+                bg_color=bg_color, crop_aabb=crop_aabb, shade_order=shade_order,
+                phase_a=phase_a)
 
         return render_chunk
 
@@ -713,15 +718,15 @@ class Trainer:
         (dx, dy) subpixel shift. The grid rounds path renders tile-ordered
         chunks (beam and ladder plan as the reference picks them); the
         one-shot grid and the dense paths render row-major chunks (reference
-        trainer.py:1157-1282). `frozen` has no effect in eager PyTorch."""
-        if self.opt.eval_frame_phase_a:
-            raise unported("eval_frame_phase_a (frame-level phase A)", "A6")
+        trainer.py:1157-1282). `frozen` has no effect in eager PyTorch.
+
+        eval_frame_phase_a on the rounds path with dt_gamma 0: one
+        march(stop_after="phase_a") of the whole tile-ordered frame, then
+        each chunk shades with its slice of those segments (reference
+        trainer.py:1003-1030). Only the block marcher has the split; on byte
+        bitfields the chunks march whole, as the reference's march ignores
+        the split there."""
         grid = self.march_cfg is not None
-        occupancy = self.occupancy
-        if grid and not (isinstance(occupancy, dict) and occupancy.get("blocks") is not None
-                         and occupancy.get("blocks_coarse") is not None):
-            raise unported("rendering without block occupancy tables "
-                           "(byte-bitfield marchers)", "A6")
         with torch.no_grad():
             if self.opt.eval_table_dtype != "float32":
                 params = self._cast_eval_tables(params)
@@ -734,10 +739,13 @@ class Trainer:
                                            tiles=grid and self.opt.eval_rounds)
             mcfg, occupancy = self._frame_march(intrinsics, H, W, rd)
             render_chunk = self._chunk_renderer(mcfg)
+            split = self._frame_phase_a(ro, rd, occupancy, mcfg, crop_aabb)
             imgs, depths = [], []
             for i in range(0, ro.shape[0], chunk):
-                out = render_chunk(params, occupancy, ro[i : i + chunk],
-                                   rd[i : i + chunk], float(bg_color), crop_aabb)
+                kw = {} if split is None else {
+                    "phase_a": {k: v[i : i + chunk] for k, v in split.items()}}
+                out = render_chunk(params, occupancy, ro[i : i + chunk], rd[i : i + chunk],
+                                   float(bg_color), crop_aabb, **kw)
                 imgs.append(out["image"])
                 depths.append(out["depth"])
             image = torch.cat(imgs)[:n]
@@ -745,6 +753,28 @@ class Trainer:
             if inv is not None:
                 image, depth = image[inv], depth[inv]
         return image.reshape(H, W, 3), depth.reshape(H, W)
+
+    def _frame_phase_a(self, ro, rd, occupancy, mcfg, crop_aabb):
+        """The frame-wide phase A ({"z", "dt", "valid"}, each (n, K_A)) that
+        render_full's chunks shade from under eval_frame_phase_a, or None
+        where the frame marches per chunk: the option off, no rounds path,
+        dt_gamma > 0 or no block tables."""
+        if not (self.opt.eval_frame_phase_a and mcfg is not None and self.opt.eval_rounds
+                and mcfg.dt_gamma == 0.0 and occupancy.get("blocks") is not None
+                and occupancy.get("blocks_coarse") is not None):
+            return None
+        m = march(ro, rd, occupancy, mcfg, crop_aabb=crop_aabb, stop_after="phase_a")
+        return {k: m[k] for k in ("z", "dt", "valid")}
+
+    def invalidate_render_cache(self):
+        """Drop the render's plan and table caches (the ladder plan, the
+        eval table cast, the dilated coarse table, the beam guard): call
+        after changing the march config, the params' layout or the table
+        dtype under them (reference trainer.py:915-925)."""
+        self._ladder_plan = None
+        self._table_cast_cache = None
+        self._beam_dilate_cache = None
+        self._beam_guard_cache = {}
 
     def evaluate(self, ds, name: str | None = None, use_ema: bool = True):
         """Mean PSNR of render_full over ds's frames (white background),
@@ -820,7 +850,24 @@ class Trainer:
 
     def save_mesh(self, path: str | None = None, resolution: int = 256,
                   threshold: float = 10.0):
-        raise unported("Trainer.save_mesh (mesh export)", "A11")
+        """The iso-surface of the EMA params' density at `threshold` on a
+        resolution^3 lattice over the bound cube (marching tetrahedra),
+        written as PLY (a path ending in .ply) or OBJ; default path
+        <workspace>/meshes/<name>_<epoch>.ply. The density runs through the
+        configured MLP backend (the fused kernel under --ff). Returns the
+        path (reference trainer.py:1421-1442)."""
+        from nerfnav_tpu_torch.models.network import density
+        from nerfnav_tpu_torch.utils.mesh import extract_geometry, save_obj, save_ply
+
+        params = self.state.ema_params
+        verts, faces, _ = extract_geometry(
+            lambda x: density(params, x, self.cfg)["sigma"], self.cfg.bound,
+            resolution=resolution, threshold=threshold, device=self.device)
+        path = path or os.path.join(self.workspace, "meshes",
+                                    f"{self.opt.name}_{self.epoch}.ply")
+        (save_ply if path.endswith(".ply") else save_obj)(path, verts, faces)
+        self.log(f"mesh saved to {path}: {len(verts)} verts, {len(faces)} faces")
+        return path
 
     # --------------------------------------------------------- checkpoints
     def _ckpt_tree(self):

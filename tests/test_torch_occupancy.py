@@ -157,11 +157,95 @@ def test_mark_untrained_grid_matches():
 
 
 def test_reset_and_unported_debounce():
+    """reset_extra_state gives a fresh state with the same keys; with
+    occ_debounce (unported until the port had it) the state carries a
+    cleared "pending" plane through init and reset, and one _finish_update
+    from the same grid and sweep gives the reference's bits and pending
+    plane (two sweeps: test_occ_debounce_sweeps_match)."""
     cfg = tocc.OccupancyConfig(**OCC)
     st = tocc.init_occupancy_state(cfg, device="cpu")
     st["density_grid"] += 1.0
     fresh = tocc.reset_extra_state(st, cfg)
     assert not bool(fresh["density_grid"].any()) and sorted(fresh) == sorted(st)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tocc._finish_update(st, tocc.OccupancyConfig(**OCC, occ_debounce=True),
-                            st["density_grid"], st["density_grid"])
+    assert "pending" not in st
+    cfg_d = tocc.OccupancyConfig(**OCC, occ_debounce=True)
+    st_d = tocc.init_occupancy_state(cfg_d, device="cpu")
+    assert st_d["pending"].dtype == torch.bool and st_d["pending"].shape == (
+        cfg_d.cascades, cfg_d.n_cells) and not bool(st_d["pending"].any())
+    st_d["pending"] |= True
+    fresh = tocc.reset_extra_state(st_d, cfg_d)
+    assert sorted(fresh) == sorted(st_d) and not bool(fresh["pending"].any())
+    sj = jocc.init_occupancy_state(jocc.OccupancyConfig(**OCC, occ_debounce=True))
+    assert sorted(sj) == sorted(st_d)
+    _debounce_sweeps(1)
+
+
+def _debounce_sweeps(n_sweeps, seed=5):
+    """n_sweeps of _finish_update under occ_debounce from one state, each from
+    the same random sweep values in both packages (half the cells unsampled,
+    the first state's pending plane random); returns the port's states."""
+    kw = dict(OCC, occ_debounce=True)
+    cfg_j, cfg_t = jocc.OccupancyConfig(**kw), tocc.OccupancyConfig(**kw)
+    rng = np.random.default_rng(seed)
+    sj = {**_state(cfg_j, False, seed=seed),
+          "pending": jnp.asarray(rng.random((cfg_j.cascades, cfg_j.n_cells)) < 0.3)}
+    st = occupancy_from_numpy(jax.tree_util.tree_map(np.asarray, sj), device="cpu")
+    states = []
+    for _ in range(n_sweeps):
+        tmp = rng.exponential(1.5, sj["density_grid"].shape).astype(np.float32)
+        tmp[rng.random(tmp.shape) < 0.5] = -1.0
+        sj = jocc._finish_update(sj, cfg_j, sj["density_grid"], jnp.asarray(tmp), None)
+        st = tocc._finish_update(st, cfg_t, st["density_grid"], torch.as_tensor(tmp))
+        assert _assert_states_match(st, sj, cfg_t) == 0
+        np.testing.assert_array_equal(st["pending"].numpy(), np.asarray(sj["pending"]))
+        assert 0 < int(st["pending"].sum()) < st["pending"].numel()
+        states.append(st)
+    return states
+
+
+def test_occ_debounce_sweeps_match():
+    """Two consecutive debounced sweeps: the bitfield, block tables and
+    pending plane equal the reference's after each; the filter held back
+    cells a plain sweep would turn on."""
+    states = _debounce_sweeps(2, seed=6)
+    occ = tmorton.unpackbits(states[-1]["bitfield"]).reshape(states[-1]["density_grid"].shape)
+    thresh = min(float(states[-1]["mean_density"]), OCC["density_thresh"])
+    assert int((states[-1]["density_grid"] > thresh).sum()) > int(occ.sum())
+
+
+def test_occ_debounce_update_and_checkpoints(tmp_path):
+    """update_extra_state with occ_debounce (a full sweep with the JAX key's
+    draws) carries "pending" like the reference; a checkpoint of the state
+    written by either package loads into the other with it."""
+    from nerfnav_tpu.training import checkpoint as jckpt
+    from nerfnav_tpu_torch.training import checkpoint as tckpt
+
+    kw = dict(OCC, occ_debounce=True)
+    pj, pt = _params()
+    cfg_j, cfg_t = jocc.OccupancyConfig(**kw), tocc.OccupancyConfig(**kw)
+    sj = {**_state(cfg_j, False, seed=7),
+          "pending": jnp.asarray(np.random.default_rng(7).random(
+              (cfg_j.cascades, cfg_j.n_cells)) < 0.3)}
+    key = jax.random.PRNGKey(11)
+    out_j = jocc.update_extra_state(sj, cfg_j, pj, jnet.NetworkConfig(**NET), key)
+    st = occupancy_from_numpy(jax.tree_util.tree_map(np.asarray, sj), device="cpu")
+    out_t = tocc.update_extra_state(st, cfg_t, pt, tnet.NetworkConfig(**NET),
+                                    _draws(cfg_j, key, False))
+    assert _assert_states_match(out_t, out_j, cfg_t) <= 2
+    pend = np.asarray(out_j["pending"])
+    assert pend.any()
+    np.testing.assert_array_equal(out_t["pending"].numpy(), pend)
+    tckpt.save_checkpoint(str(tmp_path / "port"), {"occupancy": out_t})
+    got_j, _, report = jckpt.load_checkpoint(str(tmp_path / "port"), {"occupancy": out_j})
+    assert not report
+    jckpt.save_checkpoint(str(tmp_path / "jax"), {"occupancy": out_j})
+    got_t, _, report = tckpt.load_checkpoint(
+        str(tmp_path / "jax"), {"occupancy": tocc.init_occupancy_state(cfg_t, device="cpu")})
+    assert not report
+    for k, v in out_t.items():
+        np.testing.assert_array_equal(np.asarray(got_j["occupancy"][k]).astype(np.int64),
+                                      v.numpy().astype(np.int64), err_msg=k)
+        assert got_t["occupancy"][k].dtype == v.dtype
+        np.testing.assert_array_equal(got_t["occupancy"][k].numpy().astype(np.int64)
+                                      if k.startswith("blocks") else got_t["occupancy"][k].numpy(),
+                                      np.asarray(out_j[k]).astype(v.numpy().dtype), err_msg=k)

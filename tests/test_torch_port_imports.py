@@ -41,7 +41,7 @@ NAV_MODULES = ["nav/math_utils.py", "nav/dynamics.py", "nav/astar.py", "nav/plan
                "nav/estimator.py", "nav/fused.py", "nav/agent.py", "native/__init__.py",
                "cli/flags.py", "cli/simulate.py", "data/synthetic.py", "data/provider.py",
                "cli/main_nerf.py", "training/trainer.py", "training/metrics.py",
-               "ops/marching.py", "models/renderer.py"]
+               "ops/marching.py", "models/renderer.py", "utils/mesh.py"]
 # optional host libraries: imported by the functions that use them only
 LAZY = ("cv2", "scipy", "tensorboardX")
 

@@ -37,6 +37,7 @@ from nerfnav_tpu_torch.models.occupancy import OccupancyConfig as TOccCfg
 from nerfnav_tpu_torch.ops import marching as tm
 from nerfnav_tpu_torch.training import trainer as ttrain
 from nerfnav_tpu_torch.training.checkpoint import occupancy_from_numpy, params_from_numpy
+from nerfnav_tpu_torch.utils.mesh import extract_geometry
 from test_torch_march import shell_occupancy
 
 torch.set_num_threads(1)
@@ -392,7 +393,8 @@ def test_train_loop_and_evaluate(tmp_path):
     and 16 (full, then partial after n_full_updates), the budget picked from
     the mean count, a checkpoint per epoch, a finite falling-or-flat loss;
     evaluate gives a PSNR with the EMA params. scan_steps runs the same
-    number of steps. test writes each frame and its depth map."""
+    number of steps. test writes each frame and its depth map, save_mesh a
+    PLY of the field's surface."""
     _, tt = _trainers(tmp_path, update_extra_interval=8, error_map=True)
     tt.occupancy_cfg = dataclasses.replace(tt.occupancy_cfg, n_full_updates=2)
     tt.set_occupancy(tt.state.occupancy)
@@ -413,5 +415,10 @@ def test_train_loop_and_evaluate(tmp_path):
     assert len(frames) == 2 and frames[0].shape == (HW, HW, 3)
     assert sorted(os.listdir(os.path.join(tt.workspace, "results"))) == [
         "t_0000.png", "t_0000_depth.png", "t_0001.png", "t_0001_depth.png"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tt.save_mesh()
+    _, _, field = extract_geometry(
+        lambda x: tnet.density(tt.state.ema_params, x, tt.cfg)["sigma"], tt.cfg.bound,
+        resolution=16, device="cpu")
+    path = tt.save_mesh(resolution=16, threshold=float(np.median(field)))
+    assert path == os.path.join(tt.workspace, "meshes", "t_2.ply")
+    head = open(path).read().split("end_header")[0]
+    assert "element vertex" in head and "element vertex 0\n" not in head
