@@ -152,12 +152,38 @@
    and extract_geometry at 64^3 with xla fp32 MLPs card against CPU (equal
    counts, vertices within 1e-4). Prints the frame's eval march by stage
    (stop_after "phase_a" and "phase_b_occ") and the phase's s.
-9. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+9. Training-options phase, the remaining training paths (budget ~90 s):
+   (a) data parallel: a one-rank mesh (parallel.make_mesh over an NCCL
+       process group with a file:// store under build/; gloo in the
+       rehearsal) trains the -O --ff configuration MESH_STEPS steps beside a
+       plain trainer from the same state and draws, both in torch's
+       deterministic mode; params and a 64x64 crop of render_full within
+       MESH_TOL; fused launches per mesh step and per sharded sweep; step ms
+       of both; then one step at the CPU tests' size packed in GROUPS blocks
+       (sample_groups) card vs CPU at the bars above.
+   (b) CLIP: a tower at openai/clip-vit-base-patch16's widths (hidden 768,
+       12 layers, 12 heads, patch 16, image 224, projection 512) with seeded
+       weights, written as an .npz under Hugging Face's key names and loaded
+       by make_clip_loss_fn with a seeded text embedding, card vs CPU on one
+       image (TOWER_TOL, relative L2); one poseless step's loss and gradients
+       card vs CPU at the CPU tests' size (loss 1e-5, gradients 1e-4) and
+       kernel vs plain MLP on the trained field (loss 2e-2, GRAD_TOL);
+       rand_pose 0 on the training phase's trained
+       field CLIP_STEPS steps at 800x800 / 4096 rays (64x64 frames): finite
+       losses whose last 5 average below the first, the fused kernel launched
+       in every poseless step; rand_pose 3 HYBRID_STEPS steps, both kinds
+       taken; ms of a poseless step and of the tower forward and backward.
+   (c) LPIPS: LPIPSMeter at AlexNet widths with seeded weights on two
+       800x800 frames, card vs CPU (TOWER_TOL) and LPIPS(x, x) = 0.
+   (d) profiling: utils/profiling.device_timer around a 256x256 frame and a
+       trace of one poseless step written, with fused-MLP kernels in it.
+10. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -166,6 +192,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -567,12 +594,8 @@ def silhouette_checks(tr, pose, intr, hw, sizes):
         ci = int(np.argmax(per_chunk))
         sl = slice(ci * chunk, (ci + 1) * chunk)
         got = render_chunk(params, occ, ro[sl], rd[sl], 1.0)["image"]
-        kernel_fn = fm.fused_mlp
-        fm.fused_mlp = lambda x, w, a="relu", o="none": fm.fused_mlp_reference(x, w, a, o)
-        try:
+        with plain_mlp():
             want = render_chunk(params, occ, ro[sl], rd[sl], 1.0)["image"]
-        finally:
-            fm.fused_mlp = kernel_fn
     chunk_err = float((got - want).abs().max())
     check(bool(torch.allclose(got, want, rtol=MLP_TOL, atol=MLP_TOL)),
           f"chunk {ci}: max |kernel - plain| = {chunk_err}")
@@ -639,9 +662,12 @@ def target_frames(hw, seed=0):
     return FrameSet(poses, np.stack(frames).astype(np.float32), intr)
 
 
-def train_trainer(device, sizes, workspace, params=None, small=False):
+def train_trainer(device, sizes, workspace, params=None, small=False, mesh=None,
+                  sample_groups=1):
     """A fresh port Trainer in the -O --ff training configuration; small=True
-    is the CPU tests' configuration with the xla fp32 field."""
+    is the CPU tests' configuration with the xla fp32 field; mesh: a
+    parallel.make_mesh mesh to train over; sample_groups: a single
+    process's packing groups."""
     from nerfnav_tpu_torch.models.network import NetworkConfig
     from nerfnav_tpu_torch.models.occupancy import OccupancyConfig
     from nerfnav_tpu_torch.models.renderer import RenderConfig
@@ -664,7 +690,8 @@ def train_trainer(device, sizes, workspace, params=None, small=False):
     opt = TrainerOptions(name="smoke", workspace=workspace, num_rays=rays,
                          use_checkpoint="scratch")
     return Trainer(cfg, RenderConfig(max_ray_batch=4096), opt, params=params,
-                   occupancy_cfg=occ_cfg, march_cfg=mcfg, device=device)
+                   occupancy_cfg=occ_cfg, march_cfg=mcfg, mesh=mesh, device=device,
+                   sample_groups=sample_groups)
 
 
 def sync(device):
@@ -773,19 +800,27 @@ def training_phase(device, sizes, card):
     return step_launches / TRAIN_STEPS
 
 
-def kernel_vs_plain_step(tr, arrays, H, W):
-    """loss_and_grads from one state and draws with the kernel and with the
-    plain MLP swapped in."""
+@contextlib.contextmanager
+def plain_mlp():
+    """The fused-MLP wrapper swapped for its plain version within the block
+    (no launch is counted there)."""
     from nerfnav_tpu_torch.ops import fused_mlp as fm
 
-    draws = tr.draw_step(tr.state, 0, H, W)
-    got = tr.loss_and_grads(tr.state, arrays, draws)
     kernel_fn = fm.fused_mlp
     fm.fused_mlp = lambda x, w, a="relu", o="none": fm.fused_mlp_reference(x, w, a, o)
     try:
-        want = tr.loss_and_grads(tr.state, arrays, draws)
+        yield
     finally:
         fm.fused_mlp = kernel_fn
+
+
+def kernel_vs_plain_step(tr, arrays, H, W):
+    """loss_and_grads from one state and draws with the kernel and with the
+    plain MLP swapped in."""
+    draws = tr.draw_step(tr.state, 0, H, W)
+    got = tr.loss_and_grads(tr.state, arrays, draws)
+    with plain_mlp():
+        want = tr.loss_and_grads(tr.state, arrays, draws)
     loss_rel = abs(float(got.loss) - float(want.loss)) / abs(float(want.loss))
     errs = [rel_l2(a, b) for a, b in zip(got.grads, want.grads)]
     log("one step, kernel vs plain MLP:", json.dumps({
@@ -795,14 +830,16 @@ def kernel_vs_plain_step(tr, arrays, H, W):
     check(max(errs) <= GRAD_TOL, f"gradients with the kernel {max(errs)} away (L2)")
 
 
-def card_vs_cpu_step(device, sizes):
+def card_vs_cpu_step(device, sizes, groups=1):
     """One step at the CPU tests' size, xla fp32 field: this device against
-    the CPU port, from the same params, occupancy and draws."""
+    the CPU port, from the same params, occupancy and draws. groups > 1
+    packs the step in that many blocks (sample_groups, a mesh's packing) at
+    a point budget of about half the valid samples; returns the record."""
     cpu = torch.device("cpu")
     ds = target_frames(24, seed=3)
     ws = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_small")
-    tr_cpu = train_trainer(cpu, sizes, ws, small=True)
-    tr_dev = train_trainer(device, sizes, ws, small=True, params={
+    tr_cpu = train_trainer(cpu, sizes, ws, small=True, sample_groups=groups)
+    tr_dev = train_trainer(device, sizes, ws, small=True, sample_groups=groups, params={
         k: [t.detach() for t in v] for k, v in tr_cpu.params.items()})
     occ = shell_occupancy(2.0, 32, 4, cpu)
     tr_cpu.set_occupancy({**tr_cpu.occupancy, **occ})
@@ -813,15 +850,25 @@ def card_vs_cpu_step(device, sizes):
                                bg=to_dev(draws.bg),
                                march=draws.march._replace(u=to_dev(draws.march.u),
                                                           phase=to_dev(draws.march.phase)))
+    if groups > 1:
+        n_valid = int(tr_cpu.loss_and_grads(tr_cpu.state, tr_cpu._device_arrays(ds),
+                                            draws).n_samples)
+        for tr in (tr_cpu, tr_dev):
+            tr._mean_count_host = 0.5 * n_valid / tr.opt.point_budget_margin
     want = tr_cpu.loss_and_grads(tr_cpu.state, tr_cpu._device_arrays(ds), draws)
     got = tr_dev.loss_and_grads(tr_dev.state, tr_dev._device_arrays(ds), draws_dev)
     loss_rel = abs(float(got.loss) - float(want.loss)) / abs(float(want.loss))
     errs = [rel_l2(a.cpu(), b) for a, b in zip(got.grads, want.grads)]
-    log("one step at the CPU tests' size, this device vs the CPU port:", json.dumps({
-        "n_samples": [int(got.n_samples), int(want.n_samples)], "loss_rel": loss_rel,
-        "grad_rel_l2_max": max(errs)}))
+    out = {"n_samples": [int(got.n_samples), int(want.n_samples)], "loss_rel": loss_rel,
+           "grad_rel_l2_max": max(errs)}
+    if groups > 1:
+        out.update(sample_groups=groups, budget=tr_dev._current_budget())
+        check(out["budget"] is not None and out["budget"] < int(want.n_samples),
+              f"the grouped step packs no tail: {out}")
+    log("one step at the CPU tests' size, this device vs the CPU port:", json.dumps(out))
     check(loss_rel <= 1e-5, f"loss {loss_rel} away from the CPU port's")
     check(max(errs) <= 1e-4, f"gradients {max(errs)} away from the CPU port's (L2)")
+    return out
 
 
 def time_training(tr, arrays, H, W, device, card, launches_per_step):
@@ -2518,11 +2565,405 @@ def options_phase(device, sizes, card):
     stamp("debounce")
     mesh = mesh_checks(tr, device, sizes)
     stamp("mesh")
-    shutil.rmtree(OPT_DIR, ignore_errors=True)
     log(f"options phase: {time.perf_counter() - phase_t0:.1f} s ({card}); s by step",
         json.dumps(took_s))
     return {"options_launches_per_frame": {k: v["fused_launches"] for k, v in frames.items()},
             "mesh_launches": mesh["fused_launches"], "march_stages_ms": stages}
+
+
+# ------------------------------------------------- training-options phase
+TO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_trainopts")
+MESH_STEPS = 16     # mesh and plain trainer, from the same state and draws
+MESH_TOL = 1e-6
+GROUPS = 8          # the sample_groups step card vs CPU
+CLIP_STEPS = 30     # rand_pose 0 on the trained field
+HYBRID_STEPS = 16   # rand_pose 3: steps 3, 7, 11 and 15 are poseless
+TOWER_TOL = 1e-4    # tower and LPIPS, card vs CPU, relative
+# openai/clip-vit-base-patch16's vision tower and projection
+CLIP_WIDTHS = {"card": dict(hidden=768, layers=12, heads=12, patch=16, image=224, proj=512,
+                            inter=3072),
+               "rehearsal": dict(hidden=64, layers=2, heads=4, patch=16, image=64, proj=32,
+                                 inter=128)}
+# lpips.LPIPS(net='alex'): conv (out, in, kernel) by AlexNet `features` index
+ALEX = {0: (64, 3, 11), 3: (192, 64, 5), 6: (384, 192, 3), 8: (256, 384, 3), 10: (256, 256, 3)}
+
+
+def write_clip_npz(path, w, seed=0):
+    """A CLIPVisionModelWithProjection state_dict at the widths w of seeded
+    arrays under Hugging Face's key names, as an .npz: linear and conv
+    weights normal over sqrt(fan-in), biases and embeddings normal at 0.02,
+    layer norms 1 and 0."""
+    rng = np.random.default_rng(seed)
+    h, p, inter = w["hidden"], w["patch"], w["inter"]
+    nrm = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
+    sd = {"vision_model.embeddings.patch_embedding.weight": nrm(h, 3, p, p) / math.sqrt(3 * p * p),
+          "vision_model.embeddings.class_embedding": nrm(h) * 0.02,
+          "vision_model.embeddings.position_embedding.weight":
+              nrm((w["image"] // p) ** 2 + 1, h) * 0.02,
+          "visual_projection.weight": nrm(w["proj"], h) / math.sqrt(h)}
+    for ln in ("vision_model.pre_layrnorm", "vision_model.post_layernorm"):
+        sd[ln + ".weight"], sd[ln + ".bias"] = np.ones(h, np.float32), np.zeros(h, np.float32)
+    for i in range(w["layers"]):
+        pre = f"vision_model.encoder.layers.{i}."
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[pre + ln + ".weight"] = np.ones(h, np.float32)
+            sd[pre + ln + ".bias"] = np.zeros(h, np.float32)
+        for name, (o, n) in {"self_attn.q_proj": (h, h), "self_attn.k_proj": (h, h),
+                             "self_attn.v_proj": (h, h), "self_attn.out_proj": (h, h),
+                             "mlp.fc1": (inter, h), "mlp.fc2": (h, inter)}.items():
+            sd[pre + name + ".weight"] = nrm(o, n) / math.sqrt(n)
+            sd[pre + name + ".bias"] = nrm(o) * 0.02
+    np.savez(path, **sd)
+    return path
+
+
+def write_lpips_npz(path, seed=0):
+    """An lpips.LPIPS(net='alex') state_dict of seeded arrays as an .npz:
+    convs normal over sqrt(fan-in / 2), heads |normal| x 0.1."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for n, (idx, (o, i, k)) in enumerate(ALEX.items()):
+        sd[f"net.slice{n + 1}.{idx}.weight"] = (rng.normal(size=(o, i, k, k))
+                                                * np.sqrt(2.0 / (i * k * k))).astype(np.float32)
+        sd[f"net.slice{n + 1}.{idx}.bias"] = (rng.normal(size=o) * 0.01).astype(np.float32)
+        sd[f"lin{n}.model.1.weight"] = np.abs(rng.normal(size=(1, o, 1, 1)) * 0.1).astype(
+            np.float32)
+    np.savez(path, **sd)
+    return path
+
+
+def params_max_diff(a, b):
+    return max(float((x.detach() - y.detach()).abs().max()) for k in a for x, y in zip(a[k], b[k]))
+
+
+def timed_ms(fn, device, n):
+    """Host ms per call of fn over n synchronised calls, after one warm call."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync(device)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def data_parallel_checks(device, sizes):
+    """(a) of the training-options phase: a one-rank mesh (NCCL on the card,
+    gloo on the CPU) against a plain trainer, the sharded sweep, and a
+    sample_groups step card vs CPU."""
+    import torch.distributed as dist
+
+    from nerfnav_tpu_torch.parallel import make_mesh
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(TO_DIR, 'store')}",
+                            rank=0, world_size=1)
+    # the hash tables' gradients are index_add_ sums, whose atomic order on
+    # the card changes between runs; Adam turns a rounding of a tiny
+    # gradient into lr, so the two trainers are held in deterministic mode
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as nondet:
+            warnings.simplefilter("always")
+            mesh = make_mesh(1, device_type=device.type)
+            check(dist.get_backend() == backend, f"the mesh runs {dist.get_backend()}")
+            out, trs, ds = mesh_vs_plain(device, sizes, mesh)
+        # timed as they train: deterministic index_add_ takes ~15x longer
+        torch.use_deterministic_algorithms(False)
+        out.update(mesh_timing(trs, ds, device, mesh))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    out.update(backend=backend, nondeterministic_ops=sorted(
+        {str(w.message)[:80] for w in nondet if "determinis" in str(w.message)}))
+    log("data parallel:", json.dumps(out))
+    check(out["params_max_abs"] <= MESH_TOL, f"mesh params {out['params_max_abs']} off")
+    check(out["crop_max_abs"] <= MESH_TOL, f"mesh crop {out['crop_max_abs']} off")
+    if device.type == "cuda":
+        check(out["fused_launches_per_mesh_step"] > 0,
+              "the mesh step never launched the fused-MLP kernel")
+        check(out["fused_launches_per_sharded_sweep"] > 0,
+              "the sharded sweep never launched the fused-MLP kernel")
+    out["grouped_step"] = card_vs_cpu_step(device, sizes, groups=GROUPS)
+    return out
+
+
+def mesh_vs_plain(device, sizes, mesh):
+    """MESH_STEPS of Trainer.train on the mesh and without it from one
+    state (both draw from generators seeded alike): their params and a 64x64
+    crop; returns (record, trainers, dataset)."""
+    ds = target_frames(sizes["hw"])
+    trs = {"plain": train_trainer(device, sizes, os.path.join(TO_DIR, "plain")),
+           "mesh": train_trainer(device, sizes, os.path.join(TO_DIR, "mesh"), mesh=mesh)}
+    run_s = {}
+    for name, tr in trs.items():
+        sync(device)
+        t0 = time.perf_counter()
+        tr.train(ds, max_epochs=1, steps_per_epoch=MESH_STEPS)
+        sync(device)
+        run_s[name] = time.perf_counter() - t0
+    plain, meshed = trs["plain"], trs["mesh"]
+    params_diff = params_max_diff(meshed.params, plain.params)
+    intr64 = crop_intrinsics(ds)
+    crops = {k: tr.render_full(tr.state.ema_params, ds.poses[0], intr64, 64, 64)[0]
+             for k, tr in trs.items()}
+    return {"world": 1, "steps": MESH_STEPS, "deterministic_run_s": run_s,
+            "params_max_abs": params_diff,
+            "crop_max_abs": float((crops["mesh"] - crops["plain"]).abs().max())}, trs, ds
+
+
+def mesh_timing(trs, ds, device, mesh):
+    """Step ms of the plain and the mesh trainer in turns (plain, mesh,
+    mesh, plain; 8 steps each), and the fused launches of a mesh step and
+    of a sweep sharded over the mesh."""
+    from nerfnav_tpu_torch.models.occupancy import draw_update, update_extra_state
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    meshed = trs["mesh"]
+    arrays = meshed._device_arrays(ds)
+    H, W = ds.H, ds.W
+    step_ms = {"plain": [], "mesh": []}
+    for k in ("plain", "mesh", "mesh", "plain"):
+        tr = trs[k]
+        step_ms[k].append(timed_ms(lambda: tr.train_step(
+            tr.state, arrays, tr.draw_step(tr.state, 0, H, W)), device, 8))
+    fm.fused_mlp.launches = 0
+    meshed.train_step(meshed.state, arrays, meshed.draw_step(meshed.state, 1, H, W))
+    step_launches = fm.fused_mlp.launches
+    occ, ocfg = meshed.occupancy, meshed.occupancy_cfg
+    fm.fused_mlp.launches = 0
+    update_extra_state(occ, ocfg, meshed.params, meshed.cfg, draw_update(meshed.gen, occ, ocfg),
+                       mesh=mesh)
+    return {"step_ms": step_ms, "fused_launches_per_mesh_step": step_launches,
+            "fused_launches_per_sharded_sweep": fm.fused_mlp.launches,
+            "sharded_sweep": ("partial" if int(occ["iter_density"]) >= ocfg.n_full_updates
+                              else "full")}
+
+
+def clip_checks(device, sizes):
+    """(b): the CLIP tower at sizes["clip"] widths card vs CPU, then
+    rand_pose 0 and 3 on the training phase's trained field. Returns the
+    record and the trainer."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+    from nerfnav_tpu_torch.training.clip_tower import make_clip_loss_fn, preprocess
+
+    w = sizes["clip"]
+    path = write_clip_npz(os.path.join(TO_DIR, "clip_tower.npz"), w)
+    gen = torch.Generator().manual_seed(1)
+    text = torch.randn((w["proj"],), generator=gen).numpy()
+    loss_fns = {"dev": make_clip_loss_fn(path, text, w["heads"], device),
+                "cpu": make_clip_loss_fn(path, text, w["heads"], "cpu")}
+    loss_fn, tower = loss_fns["dev"], loss_fns["dev"].tower
+    check(tower.cfg == {"hidden": w["hidden"], "patch": w["patch"], "image_size": w["image"],
+                        "heads": w["heads"]} and len(tower.weights["layers"]) == w["layers"],
+          f"the tower loaded as {tower.cfg}, {len(tower.weights['layers'])} layers")
+    px = preprocess(torch.rand((64, 64, 3), generator=gen), w["image"])
+    with torch.no_grad():
+        emb_cpu = loss_fns["cpu"].tower(px)
+        emb_dev = tower(px.to(device))
+    out = {"widths": w, "tower_rel_l2": rel_l2(emb_dev.cpu(), emb_cpu)}
+    check(out["tower_rel_l2"] <= TOWER_TOL, f"tower card vs CPU {out['tower_rel_l2']}")
+    out["poseless_card_vs_cpu"] = poseless_card_vs_cpu(device, sizes, loss_fns)
+
+    tr = train_trainer(device, sizes, os.path.join(TO_DIR, "clip"))
+    tr.load_checkpoint(OPT_CKPT)
+    tr.clip_loss_fn = loss_fn
+    ds = target_frames(sizes["hw"])
+    out["poseless_kernel_vs_plain"] = poseless_kernel_vs_plain(tr, ds)
+    steps = {"clip": [], "rays": 0}
+    clip_step, train_step = tr.clip_step, tr.train_step
+
+    def counted_clip(*a, **k):
+        before = fm.fused_mlp.launches
+        loss = clip_step(*a, **k)
+        steps["clip"].append((float(loss), fm.fused_mlp.launches - before))
+        return loss
+
+    def counted_rays(*a, **k):
+        steps["rays"] += 1
+        return train_step(*a, **k)
+
+    tr.clip_step, tr.train_step = counted_clip, counted_rays
+    runs = {}
+    for rp, n in ((0, CLIP_STEPS), (3, HYBRID_STEPS)):
+        tr.opt.rand_pose = rp
+        steps["clip"], steps["rays"] = [], 0
+        sync(device)
+        t0 = time.perf_counter()
+        tr.train(ds, max_epochs=1, steps_per_epoch=n)
+        sync(device)
+        runs[rp] = {"s": time.perf_counter() - t0, "clip_steps": len(steps["clip"]),
+                    "ray_steps": steps["rays"], "losses": [l for l, _ in steps["clip"]],
+                    "fused_launches": [k for _, k in steps["clip"]]}
+    del tr.clip_step, tr.train_step
+    losses = runs[0]["losses"]
+    out.update(frame=list(tr.clip_frame(ds.H, ds.W)), runs=runs,
+               loss_first=losses[0], loss_last5=float(np.mean(losses[-5:])))
+    H, W = ds.H, ds.W
+    pose = yaw_pose(30.0)
+    out["clip_step_ms"] = timed_ms(lambda: tr.clip_step(tr.state, pose, ds.intrinsics, H, W),
+                                   device, 5)
+    x = preprocess(torch.rand((64, 64, 3), generator=gen).to(device), w["image"])
+    with torch.no_grad():
+        out["tower_forward_ms"] = timed_ms(lambda: tower(x), device, 5)
+    xg = x.clone().requires_grad_()
+
+    def tower_fb():
+        return torch.autograd.grad(loss_fn.tower(xg) @ loss_fn.text, xg)
+
+    out["tower_forward_backward_ms"] = timed_ms(tower_fb, device, 5)
+    log("clip:", json.dumps(out))
+    if device.type == "cuda":
+        profile_call(lambda: tr.clip_step(tr.state, pose, ds.intrinsics, H, W),
+                     out["clip_step_ms"], "profiled poseless step")
+        profile_call(tower_fb, out["tower_forward_backward_ms"],
+                     "profiled tower forward and backward")
+    check(runs[0]["clip_steps"] == CLIP_STEPS and runs[0]["ray_steps"] == 0,
+          f"rand_pose 0 took {runs[0]['clip_steps']} poseless and {runs[0]['ray_steps']} "
+          "supervised steps")
+    check(runs[3]["clip_steps"] == HYBRID_STEPS // 4
+          and runs[3]["ray_steps"] == HYBRID_STEPS - HYBRID_STEPS // 4,
+          f"rand_pose 3 took {runs[3]['clip_steps']} poseless and {runs[3]['ray_steps']} "
+          "supervised steps")
+    check(all(math.isfinite(v) for r in runs.values() for v in r["losses"]),
+          "a non-finite CLIP loss")
+    check(out["loss_last5"] < out["loss_first"], "the CLIP loss did not fall")
+    if device.type == "cuda":
+        check(all(k > 0 for r in runs.values() for k in r["fused_launches"]),
+              "a CLIP step launched no fused-MLP kernel")
+    return out, tr
+
+
+def poseless_card_vs_cpu(device, sizes, loss_fns):
+    """clip_loss_and_grads at the CPU tests' size, xla fp32 field: this
+    device against the CPU port from the same params, occupancy and draws,
+    each scored by its own copy of the tower (loss_fns "dev" and "cpu"), at
+    card_vs_cpu_step's bars."""
+    from torch.utils._pytree import tree_map_only
+
+    cpu = torch.device("cpu")
+    ds = target_frames(24, seed=3)
+    ws = os.path.join(TO_DIR, "small")
+    tr_cpu = train_trainer(cpu, sizes, ws, small=True)
+    tr_dev = train_trainer(device, sizes, ws, small=True, params={
+        k: [t.detach() for t in v] for k, v in tr_cpu.params.items()})
+    occ = shell_occupancy(2.0, 32, 4, cpu)
+    tr_cpu.set_occupancy({**tr_cpu.occupancy, **occ})
+    tr_dev.set_occupancy({**tr_dev.occupancy, **{k: v.to(device) for k, v in occ.items()}})
+    tr_cpu.clip_loss_fn, tr_dev.clip_loss_fn = loss_fns["cpu"], loss_fns["dev"]
+    _, rH, rW = tr_cpu.clip_frame(ds.H, ds.W)
+    draws = tr_cpu.draw_clip(rH * rW)
+    args = (ds.poses[0], ds.intrinsics, ds.H, ds.W)
+    want = tr_cpu.clip_loss_and_grads(tr_cpu.state, *args, draws)
+    got = tr_dev.clip_loss_and_grads(tr_dev.state, *args,
+                                     tree_map_only(torch.Tensor, lambda t: t.to(device), draws))
+    loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    errs = [rel_l2(a.cpu(), b) for a, b in zip(got[1], want[1])]
+    out = {"frame": [rH, rW], "loss": float(want[0]), "loss_rel": loss_rel,
+           "grad_rel_l2_max": max(errs),
+           "grad_norm": float(torch.stack([g.norm() for g in want[1]]).norm())}
+    log("one poseless step at the CPU tests' size, this device vs the CPU port:",
+        json.dumps(out))
+    check(out["grad_norm"] > 0, "the poseless step's gradient is 0")
+    check(loss_rel <= 1e-5, f"poseless loss {loss_rel} away from the CPU port's")
+    check(max(errs) <= 1e-4, f"poseless gradients {max(errs)} away from the CPU port's (L2)")
+    return out
+
+
+def poseless_kernel_vs_plain(tr, ds):
+    """clip_loss_and_grads of the trained field from one state and draws
+    with the kernel and with the plain MLP swapped in, at
+    kernel_vs_plain_step's bars."""
+    _, rH, rW = tr.clip_frame(ds.H, ds.W)
+    draws = tr.draw_clip(rH * rW)
+    args = (tr.state, yaw_pose(30.0), ds.intrinsics, ds.H, ds.W, draws)
+    got = tr.clip_loss_and_grads(*args)
+    with plain_mlp():
+        want = tr.clip_loss_and_grads(*args)
+    loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    errs = [rel_l2(a, b) for a, b in zip(got[1], want[1])]
+    out = {"loss_rel": loss_rel, "grad_rel_l2_max": max(errs), "bound": GRAD_TOL}
+    log("one poseless step, kernel vs plain MLP:", json.dumps(out))
+    check(loss_rel <= 2e-2, f"poseless loss with the kernel {loss_rel} away from the plain MLP's")
+    check(max(errs) <= GRAD_TOL, f"poseless gradients with the kernel {max(errs)} away (L2)")
+    return out
+
+
+def lpips_checks(device, sizes):
+    """(c): LPIPSMeter at AlexNet widths with seeded weights on two frames,
+    card vs CPU, and LPIPS(x, x) = 0."""
+    from nerfnav_tpu_torch.training.metrics import LPIPSMeter
+
+    path = write_lpips_npz(os.path.join(TO_DIR, "lpips_alex.npz"))
+    ds = target_frames(sizes["hw"])
+    a, b = ds.images[0], ds.images[1]
+    meters = {k: LPIPSMeter(weights_path=path, device=dev)
+              for k, dev in (("dev", device), ("cpu", torch.device("cpu")))}
+    d = {k: m.update(a, b) for k, m in meters.items()}
+    same = meters["dev"].update(a, a)
+    fn = meters["dev"]._port_fn
+    out = {"hw": ds.H, "dev": d["dev"], "cpu": d["cpu"],
+           "rel": abs(d["dev"] - d["cpu"]) / abs(d["cpu"]), "same": same,
+           "ms": timed_ms(lambda: fn(a, b), device, 3), "report": meters["dev"].report()}
+    log("lpips:", json.dumps(out))
+    check(d["cpu"] > 0 and out["rel"] <= TOWER_TOL, f"LPIPS card vs CPU {out}")
+    check(same == 0.0, f"LPIPS(x, x) = {same}")
+    return out
+
+
+def profiling_checks(tr, device):
+    """(d): utils/profiling's device_timer around a 256x256 frame and a
+    trace of one CLIP step."""
+    from nerfnav_tpu_torch.utils.profiling import device_timer, trace
+
+    times = {}
+    intr = np.asarray([320.0, 320.0, 128.0, 128.0], np.float32)
+    with device_timer("frame_256", times) as box:
+        box["result"] = tr.render_full(tr.state.ema_params, yaw_pose(0.0), intr, 256, 256)
+    with trace(os.path.join(TO_DIR, "trace")) as path:
+        tr.clip_step(tr.state, yaw_pose(45.0), np.asarray([1000.0, 1000.0, 400.0, 400.0],
+                                                           np.float32), 800, 800)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {"frame_256_ms": times["frame_256"] * 1e3, "trace_bytes": os.path.getsize(path),
+           "trace_events": len(events), "trace_kernels": len(kernels),
+           "trace_fused_kernels": sum("fused_mlp_kernel" in e.get("name", "") for e in kernels)}
+    log("profiling:", json.dumps(out))
+    check(times["frame_256"] > 0 and out["trace_events"] > 0, f"profiling {out}")
+    if device.type == "cuda":
+        check(out["trace_fused_kernels"] > 0, f"the trace shows no fused-MLP kernel: {out}")
+    return out
+
+
+def train_options_phase(device, sizes, card):
+    """The remaining training paths (see the module docstring). Returns the
+    fields the kernels line carries."""
+    phase_t0 = time.perf_counter()
+    took_s = {}
+
+    def stamp(what):
+        took_s[what] = time.perf_counter() - phase_t0 - sum(took_s.values())
+
+    shutil.rmtree(TO_DIR, ignore_errors=True)
+    os.makedirs(TO_DIR)
+    dp = data_parallel_checks(device, sizes)
+    stamp("data_parallel")
+    clip, tr = clip_checks(device, sizes)
+    stamp("clip")
+    lp = lpips_checks(device, sizes)
+    stamp("lpips")
+    prof = profiling_checks(tr, device)
+    stamp("profiling")
+    shutil.rmtree(TO_DIR, ignore_errors=True)
+    shutil.rmtree(OPT_DIR, ignore_errors=True)
+    log(f"training-options phase: {time.perf_counter() - phase_t0:.1f} s ({card}); s by step",
+        json.dumps(took_s))
+    return {"mesh_step_launches": dp["fused_launches_per_mesh_step"],
+            "sharded_sweep_launches": dp["fused_launches_per_sharded_sweep"],
+            "clip_step_launches": clip["runs"][0]["fused_launches"][-1],
+            "clip_step_ms": clip["clip_step_ms"], "lpips_ms": lp["ms"],
+            "frame_256_ms": prof["frame_256_ms"]}
 
 
 def main():
@@ -2538,14 +2979,16 @@ def main():
         device = torch.device("cpu")
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
                  "rays": 512, "nav": NAV_SIZES["rehearsal"], "ref": REF_SIZES["rehearsal"],
-                 "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32, "mesh_res": 32}
+                 "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32, "mesh_res": 32,
+                 "clip": CLIP_WIDTHS["rehearsal"]}
     else:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
         device = torch.device("cuda")
         sizes = {"hw": 800, "grid": 128, "log2": 17, "frames": 3, "mlp_n": 32768,
                  "rays": 4096, "nav": NAV_SIZES["card"], "ref": REF_SIZES["card"],
-                 "bg": BG_SIZES["card"], "dense_n": 4096 * 512, "mesh_res": 256}
+                 "bg": BG_SIZES["card"], "dense_n": 4096 * 512, "mesh_res": 256,
+                 "clip": CLIP_WIDTHS["card"]}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
@@ -2572,6 +3015,7 @@ def main():
     ref_launches = reference_phase(device, sizes, card)
     bg_launches = bg_phase(device, sizes, card)
     opt_out = options_phase(device, sizes, card)
+    train_opt_out = train_options_phase(device, sizes, card)
     entry = {"name": "fused_mlp", "route": "cuda",
              "source": "nerfnav_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "nerfnav_tpu/ops/fused_mlp.py:58",
@@ -2581,7 +3025,7 @@ def main():
              "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches,
              "nav_launches": nav_launches, **ref_launches,
              **{k: v for k, v in mlp.items() if k.startswith(("bg_", "mesh_"))},
-             **bg_launches, **opt_out}
+             **bg_launches, **opt_out, **train_opt_out}
     log(json.dumps({"kernels": [entry]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)

@@ -94,8 +94,12 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--error_map", action="store_true")
     p.add_argument("--rand_pose", type=int, default=-1)
     p.add_argument("--clip_text", type=str, default="")
-    p.add_argument("--clip_weights", type=str, default=None)
-    p.add_argument("--clip_text_embed", type=str, default=None)
+    p.add_argument("--clip_weights", type=str, default=None,
+                   help="a saved CLIPModel state_dict (or .npz of it) for the "
+                   "vision tower (training/clip_tower.py shows how to make it)")
+    p.add_argument("--clip_text_embed", type=str, default=None,
+                   help=".npy text embedding paired with --clip_weights (the text "
+                   "tower runs once, offline)")
     p.add_argument("--gui", action="store_true")
     p.add_argument("--W", type=int, default=1920)
     p.add_argument("--H", type=int, default=1080)

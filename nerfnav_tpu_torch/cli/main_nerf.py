@@ -10,7 +10,10 @@ cli/flags.py). Training runs max(iters // steps_per_epoch, 1) epochs of
 max(len(train), 100) steps and evaluates the val split; `--test` resumes the
 checkpoint (`--ckpt`), evaluates the val split and writes the test path's
 (else the val split's) frames, depth maps and video under
-<workspace>/results. Runs on the card unless `--device cpu` asks for the CPU.
+<workspace>/results. `--rand_pose` trains from random orbit poses scored by
+the CLIP tower of `--clip_weights` against `--clip_text_embed`
+(training/clip_tower.py; both files are the user's). Runs on the card unless
+`--device cpu` asks for the CPU.
 """
 
 import sys
@@ -25,11 +28,17 @@ def make_trainer(opt):
 
     if opt.gui:
         raise unported("the interactive viewer (--gui)", "A11")
-    if opt.clip_weights is not None or opt.clip_text_embed is not None:
-        raise unported("CLIP-guided training (--clip_weights, --clip_text_embed)", "A11")
-    if opt.rand_pose >= 0:
-        raise unported("poseless training (--rand_pose)", "A11")
+    if (opt.clip_weights is None) != (opt.clip_text_embed is None):
+        raise SystemExit(
+            "--clip_weights and --clip_text_embed come as a pair (the .npy text "
+            "embedding is precomputed with the text tower; see training/clip_tower.py)")
     device = resolve_device(opt.device)
+    clip_loss_fn = None
+    if opt.clip_weights is not None:
+        from nerfnav_tpu_torch.training.clip_tower import make_clip_loss_fn
+
+        clip_loss_fn = make_clip_loss_fn(opt.clip_weights, opt.clip_text_embed,
+                                         device=device)
     cfg, rcfg, occ_cfg, march_cfg = make_configs(opt, for_nav=False)
     ds_opt = DatasetOptions(
         path=opt.path, scale=opt.scale, offset=tuple(opt.offset),
@@ -44,10 +53,10 @@ def make_trainer(opt):
         eval_occ_ladder=opt.eval_occ_ladder, eval_frame_phase_a=opt.eval_frame_phase_a,
         stride_phase=opt.stride_phase, eval_coarse_segments=opt.eval_coarse_segments,
         eval_coarse_anchors=opt.eval_coarse_anchors, eval_first_k=opt.eval_first_k,
-        eval_proxy=opt.eval_proxy,
+        eval_proxy=opt.eval_proxy, rand_pose=opt.rand_pose, clip_text=opt.clip_text,
         **({"eval_beam": opt.eval_beam} if opt.eval_beam else {}))
     trainer = Trainer(cfg, rcfg, topt, occupancy_cfg=occ_cfg, march_cfg=march_cfg,
-                      device=device)
+                      clip_loss_fn=clip_loss_fn, device=device)
     return trainer, ds_opt
 
 

@@ -9,7 +9,9 @@ state carries a "pending" plane (bool (cascades, H^3)) and a cell turns on
 only after two consecutive observed sweeps above the carve bar. The sweeps'
 random draws (jitter, uniform and occupied cells) are explicit tensors
 (`UpdateDraws`, made by `draw_update`), so a test can inject the JAX
-package's draws.
+package's draws. Under a device mesh each rank queries its block of a
+sweep's cells (with its slice of the shared draws) and the densities are
+gathered; the EMA-max merge is elementwise and runs replicated.
 """
 
 from dataclasses import dataclass
@@ -22,6 +24,7 @@ import torch
 from nerfnav_tpu_torch.device import resolve_device
 from nerfnav_tpu_torch.models import network as net
 from nerfnav_tpu_torch.ops.morton import pack_blocks, packbits, unpackbits
+from nerfnav_tpu_torch.parallel import gather_rays, mesh_size, shard_rays
 
 
 @dataclass(frozen=True)
@@ -117,9 +120,20 @@ def _cell_centers(cfg: OccupancyConfig, cell_idx):
     return (coords.float() + 0.5) / h * 2.0 - 1.0
 
 
-def _query_cells(params, net_cfg, cfg: OccupancyConfig, cell_idx, cas: int, jitter):
+def _query_cells(params, net_cfg, cfg: OccupancyConfig, cell_idx, cas: int, jitter,
+                 mesh=None):
     """Density at a jittered point inside each cell of cascade `cas`, in
-    chunks of cfg.update_chunk points."""
+    chunks of cfg.update_chunk points; with a mesh, this rank's block of the
+    cells, the blocks then gathered (reference occupancy.py:157-185)."""
+    if mesh is not None:
+        n = cell_idx.shape[0]
+        pad = (-n) % mesh_size(mesh)
+        if pad:  # equal blocks: the padding queries cell 0 and is dropped
+            cell_idx = torch.cat([cell_idx, cell_idx.new_zeros(pad)])
+            jitter = torch.cat([jitter, jitter.new_zeros((pad, 3))])
+        cell_idx, jitter = shard_rays((cell_idx, jitter), mesh)
+        return gather_rays(_query_cells(params, net_cfg, cfg, cell_idx, cas, jitter),
+                           mesh)[:n]
     centers = _cell_centers(cfg, cell_idx)
     cas_bound = torch.full((), min(2.0**cas, cfg.bound), device=centers.device)
     half_cell = cas_bound / cfg.grid_size
@@ -129,18 +143,19 @@ def _query_cells(params, net_cfg, cfg: OccupancyConfig, cell_idx, cas: int, jitt
                       for i in range(0, pts.shape[0], c)])
 
 
-def _update_full(state, cfg: OccupancyConfig, params, net_cfg, draws, thresh_cap=None):
+def _update_full(state, cfg: OccupancyConfig, params, net_cfg, draws, thresh_cap=None,
+                 mesh=None):
     grid = state["density_grid"]
     tmp = torch.full_like(grid, -1.0)
     cells = torch.arange(cfg.n_cells, device=grid.device)
     for cas in range(cfg.cascades):
-        sig = _query_cells(params, net_cfg, cfg, cells, cas, draws[cas].jitter)
+        sig = _query_cells(params, net_cfg, cfg, cells, cas, draws[cas].jitter, mesh)
         tmp[cas] = sig * net_cfg.density_scale
     return _finish_update(state, cfg, grid, tmp, thresh_cap)
 
 
 def _update_partial(state, cfg: OccupancyConfig, params, net_cfg, draws,
-                    thresh_cap=None):
+                    thresh_cap=None, mesh=None):
     """n_cells/4 uniform cells plus n_cells/4 cells drawn from the occupied
     ones (inverse CDF over the occupancy mask; uniform when none is)."""
     grid = state["density_grid"]
@@ -153,7 +168,7 @@ def _update_partial(state, cfg: OccupancyConfig, params, net_cfg, draws,
         occ_cells = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, cfg.n_cells - 1)
         occ_cells = torch.where(total > 0, occ_cells, d.rand_cells)
         cells = torch.cat([d.rand_cells, occ_cells])
-        sig = _query_cells(params, net_cfg, cfg, cells, cas, d.jitter)
+        sig = _query_cells(params, net_cfg, cfg, cells, cas, d.jitter, mesh)
         tmp[cas].scatter_reduce_(0, cells, sig * net_cfg.density_scale, "amax")
     return _finish_update(state, cfg, grid, tmp, thresh_cap)
 
@@ -223,13 +238,15 @@ def _finish_update(state, cfg: OccupancyConfig, grid, tmp, thresh_cap=None):
 
 @torch.no_grad()
 def update_extra_state(state, cfg: OccupancyConfig, params, net_cfg, draws,
-                       thresh_cap=None):
+                       thresh_cap=None, mesh=None):
     """One density sweep: full for the first cfg.n_full_updates, then
     partial (the reference's renderer.py:446-451 dispatch, a host read of
-    the update counter). draws: draw_update's list for this state. thresh_cap
-    pins the carve bar (TrainerOptions.occ_thresh_freeze_after)."""
+    the update counter). draws: draw_update's list for this state, the same
+    on every rank of a mesh. thresh_cap pins the carve bar
+    (TrainerOptions.occ_thresh_freeze_after). mesh: a parallel.make_mesh
+    mesh, whose ranks query the cells in blocks."""
     update = _update_partial if _partial(state, cfg) else _update_full
-    return update(state, cfg, params, net_cfg, draws, thresh_cap)
+    return update(state, cfg, params, net_cfg, draws, thresh_cap, mesh)
 
 
 def reset_extra_state(state, cfg: OccupancyConfig):

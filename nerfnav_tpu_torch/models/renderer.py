@@ -25,7 +25,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from nerfnav_tpu_torch.device import device_const, unported
+from nerfnav_tpu_torch.device import device_const
 from nerfnav_tpu_torch.models import network as net
 from nerfnav_tpu_torch.ops.marching import _excl_trans
 
@@ -305,13 +305,13 @@ def render_rays_grid(field: Field, occupancy, mcfg, rays_o, rays_d, key=None,
     (N, K) samples densely or, with `sample_budget` < N*K, only the first
     `sample_budget` valid samples packed ray by ray (the rest are dropped
     tail first), composite, add the background. key: a MarchKey or None;
-    bg_color: scalar, (3,) or (N, 3). Returns {"image", "depth",
-    "weights_sum", "n_samples"}; n_samples is the valid count before the
-    budget, a 0-d tensor."""
+    bg_color: scalar, (3,) or (N, 3). sample_groups > 1 packs each of that
+    many equal blocks of rays into sample_budget / sample_groups slots of
+    its own (a mesh of that many ranks packs so, one block each). Returns
+    {"image", "depth", "weights_sum", "n_samples"}; n_samples is the valid
+    count before the budget, a 0-d tensor."""
     from nerfnav_tpu_torch.ops.marching import march
 
-    if sample_groups != 1:
-        raise unported("sample_groups > 1 (per-shard packing under a mesh)", "A11")
     n = rays_o.shape[0]
     # detached rays: no derivative of either mode enters the march
     with torch.no_grad():
@@ -322,7 +322,7 @@ def render_rays_grid(field: Field, occupancy, mcfg, rays_o, rays_d, key=None,
     n_samples = valid.sum()
     if sample_budget is not None and sample_budget < n * k:
         sigmas, rgbs = _shade_packed(field, rays_o, rays_d, z, valid,
-                                     sample_budget, mcfg.bound)
+                                     sample_budget, mcfg.bound, groups=sample_groups)
     else:
         sigmas, rgbs = _shade_dense(field, rays_o, rays_d, z, valid, mcfg.bound)
     image, depth, weights_sum, _ = composite(sigmas, rgbs, dt, z, field.density_scale)
@@ -351,32 +351,47 @@ def _shade_dense(field: Field, rays_o, rays_d, z, valid, bound: float):
 
 def _pack_indices(valid, budget: int):
     """Packed slot -> (ray r, in-ray position j, slot in use) for a per-ray
-    prefix mask (N, K): (budget,) int64, int64, bool. Each ray's id and its
-    segment start are written at the start, and a running max (cummax)
-    fills each segment; a ray with no samples shares its start with the
-    next ray, which the max resolves to the later one."""
-    n, _ = valid.shape
-    counts = valid.sum(dim=1)
-    offsets = torch.cumsum(counts, 0) - counts
-    total = offsets[-1] + counts[-1]
+    prefix mask (..., N, K): (..., budget) int64, int64, bool, each leading
+    index packed on its own. Each ray's id and its segment start are written
+    at the start, and a running max (cummax) fills each segment; a ray with
+    no samples shares its start with the next ray, which the max resolves to
+    the later one."""
+    *lead, n, _ = valid.shape
+    dev = valid.device
+    counts = valid.sum(dim=-1)
+    offsets = torch.cumsum(counts, -1) - counts
+    total = offsets[..., -1:] + counts[..., -1:]
     at = torch.clamp(offsets, max=budget)  # starts past the budget drop
-    seg_ray = torch.zeros(budget + 1, dtype=torch.int64, device=valid.device)
-    seg_ray.scatter_reduce_(0, at, torch.arange(n, device=valid.device), "amax")
-    seg_off = torch.zeros(budget + 1, dtype=torch.int64, device=valid.device)
-    seg_off.scatter_reduce_(0, at, offsets, "amax")
-    r = torch.cummax(seg_ray[:budget], 0).values
-    p = torch.arange(budget, device=valid.device)
-    return r, p - torch.cummax(seg_off[:budget], 0).values, p < total
+    seg_ray = torch.zeros((*lead, budget + 1), dtype=torch.int64, device=dev)
+    seg_ray.scatter_reduce_(-1, at, torch.arange(n, device=dev).expand_as(at), "amax")
+    seg_off = torch.zeros((*lead, budget + 1), dtype=torch.int64, device=dev)
+    seg_off.scatter_reduce_(-1, at, offsets, "amax")
+    r = torch.cummax(seg_ray[..., :budget], -1).values
+    p = torch.arange(budget, device=dev)
+    return r, p - torch.cummax(seg_off[..., :budget], -1).values, p < total
 
 
-def _shade_packed(field: Field, rays_o, rays_d, z, valid, budget: int, bound: float):
+def _shade_packed(field: Field, rays_o, rays_d, z, valid, budget: int, bound: float,
+                  groups: int = 1):
     """Field over a packed buffer of the first `budget` valid samples (valid
     is a per-ray prefix), scattered back into the dense (N, K) layout for the
     unchanged composite. A packed sample whose dense slot is invalid shades
-    nothing (the reference's defence against a mask that is no prefix)."""
+    nothing (the reference's defence against a mask that is no prefix).
+
+    groups > 1 cuts the rays into `groups` equal blocks, each packing its
+    own first budget / groups valid samples (reference renderer.py:402-470):
+    a block's tail drops where the global packing would have kept it."""
     n, k = z.shape
-    r, j, pvalid = _pack_indices(valid, budget)
-    flat = torch.clamp(r * k + j, 0, n * k - 1)
+    assert n % groups == 0 and budget % groups == 0, (n, budget, groups)
+    ng = n // groups
+    r, j, pvalid = _pack_indices(valid.reshape(groups, ng, k) if groups > 1 else valid,
+                                 budget // groups)
+    flat = torch.clamp(r * k + j, 0, ng * k - 1)
+    if groups > 1:  # block-local slots to global rays and dense slots
+        block = torch.arange(groups, device=z.device)[:, None]
+        flat = (flat + block * (ng * k)).reshape(-1)
+        r = (r + block * ng).reshape(-1)
+        pvalid = pvalid.reshape(-1)
     zp = z.reshape(-1)[flat]
     pvalid_slot = valid.reshape(-1)[flat]
     hd = field.encode_dir_fn(_unit(rays_d))

@@ -1,7 +1,8 @@
-"""Evaluation metrics: PSNR, and the sRGB transfer curve.
+"""Evaluation metrics: PSNR, LPIPS, and the sRGB transfer curve.
 
-Counterpart of nerfnav_tpu/training/metrics.py (`PSNRMeter`,
-`srgb_to_linear`). LPIPS needs pretrained towers and is ROADMAP A11."""
+Counterpart of nerfnav_tpu/training/metrics.py (`PSNRMeter`, `LPIPSMeter`,
+`srgb_to_linear`). LPIPS needs pretrained weights, which the user supplies
+(training/lpips_net.py)."""
 
 import numpy as np
 
@@ -36,6 +37,76 @@ class PSNRMeter:
 
     def report(self):
         return f"PSNR = {self.measure():.6f}"
+
+
+class LPIPSMeter:
+    """Accumulates the LPIPS distance over image pairs (reference
+    metrics.py:42-115).
+
+    Weight sources, in the reference's order: `weights_path`, an
+    `lpips.LPIPS(net='alex').state_dict()` file (or .npz) the user supplies,
+    run by training/lpips_net.py on `device`; else the `lpips` package, if
+    it is installed with its weights. With neither, `available` is False
+    and update() raises."""
+
+    def __init__(self, net: str = "alex", weights_path: str | None = None, device="cuda"):
+        from nerfnav_tpu_torch.device import resolve_device
+
+        self.net = net
+        self.clear()
+        self._fn = None
+        self._port_fn = None
+        self.device = resolve_device(device)
+        if weights_path is not None:
+            from nerfnav_tpu_torch.training.lpips_net import LPIPS
+
+            if net != "alex":
+                raise ValueError("the port's LPIPS implements the 'alex' backbone; "
+                                 "use the lpips package for vgg/squeeze")
+            self._port_fn = LPIPS(weights_path, self.device)
+            self.available = True
+            return
+        try:
+            import lpips
+
+            self._fn = lpips.LPIPS(net=net).to(self.device)
+            self.available = True
+        except Exception:
+            self.available = False
+
+    def clear(self):
+        self.V = 0.0
+        self.N = 0
+
+    def update(self, preds, truths):
+        """preds, truths: (H, W, 3) images in [0, 1]; returns their distance."""
+        if not self.available:
+            raise RuntimeError(
+                "LPIPS needs pretrained weights: pass LPIPSMeter(weights_path=...) with "
+                "a saved lpips.LPIPS(net='alex').state_dict() (see "
+                "training/lpips_net.py), or install the `lpips` package")
+        if self._port_fn is not None:
+            v = self._port_fn(preds, truths)
+        else:
+            import torch
+
+            p, t = (torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+                    .permute(2, 0, 1)[None] * 2 - 1 for x in (preds, truths))
+            with torch.no_grad():
+                v = float(self._fn(p, t).item())
+        self.V += v
+        self.N += 1
+        return v
+
+    def measure(self):
+        return self.V / max(self.N, 1)
+
+    def write(self, writer, global_step, prefix=""):
+        if writer is not None:
+            writer.add_scalar(f"{prefix}/LPIPS ({self.net})", self.measure(), global_step)
+
+    def report(self):
+        return f"LPIPS ({self.net}) = {self.measure():.6f}"
 
 
 def srgb_to_linear(x):

@@ -28,8 +28,21 @@ key) and of an occupancy sweep is a tensor argument (`StepDraws`,
 the reference. The reference's compiled programs become eager calls: the
 step cache, `scan_steps` (steps here run one at a time, which the reference
 pins as step-identical), `eval_scan` and `render_full(frozen=...)` have no
-effect. rand_pose / CLIP and device meshes raise NotImplementedError naming
-their ROADMAP item.
+effect.
+
+With `rand_pose` >= 0 the loop takes poseless similarity batches
+(`clip_step`): a low-resolution frame from a random orbit pose rendered on
+white and scored by `clip_loss_fn` (training/clip_tower.py), every batch
+(rand_pose 0) or one per rand_pose supervised batches.
+
+With a device mesh (parallel/sharding.py, one process per device) every
+rank draws the global batch and its draws from the same generators, shades
+its block of the rays with its own packing into budget / world slots (the
+reference's sample_groups = world), and the gradients are averaged over the
+mesh; the sample counts that pick the point budget are summed over it, so
+every rank takes the same host-side decisions. Occupancy sweeps and
+`render_full` split their points and each chunk's rays the same way and
+gather the results. Only rank 0 writes checkpoints, images and the log.
 """
 
 from dataclasses import dataclass, field, replace
@@ -42,10 +55,12 @@ import numpy as np
 import torch
 
 from nerfnav_tpu_torch.data.provider import write_image
+from nerfnav_tpu_torch.data.provider import rand_poses
 from nerfnav_tpu_torch.data.rays import (
-    EMAP_SIDE, RayDraws, draw_rays, get_padded_rays, get_rays, rays_from_pixels, tile_order,
+    EMAP_SIDE, RayDraws, draw_rays, get_all_rays, get_padded_rays, get_rays, rays_from_pixels,
+    tile_order,
 )
-from nerfnav_tpu_torch.device import resolve_device, unported
+from nerfnav_tpu_torch.device import resolve_device
 from nerfnav_tpu_torch.models.network import NetworkConfig, init_network
 from nerfnav_tpu_torch.models.occupancy import (
     draw_update, init_occupancy_state, mark_untrained_grid, update_extra_state,
@@ -58,6 +73,9 @@ from nerfnav_tpu_torch.ops.marching import (
     phase_a_group_of, plan_gamma_span, plan_occupied_ladder,
 )
 from nerfnav_tpu_torch.ops.morton import block_size_of
+from nerfnav_tpu_torch.parallel import (
+    all_mean, all_sum, gather_rays, mesh_rank, mesh_size, shard_rays,
+)
 from nerfnav_tpu_torch.training import checkpoint as ckpt_lib
 from nerfnav_tpu_torch.training.metrics import PSNRMeter
 
@@ -122,16 +140,20 @@ class TrainState:
 
 class StepDraws(NamedTuple):
     """The random draws of one train step: the march key on the grid path,
-    the sample jitter (and importance-sampling draws) on the dense one."""
+    the sample jitter (and importance-sampling draws) on the dense one. A
+    poseless step (clip_step) has no image, pixels or background."""
     idx: int                  # image index
-    rays: RayDraws
-    bg: torch.Tensor          # (num_rays, 3) background colors
+    rays: Optional[RayDraws]
+    bg: Optional[torch.Tensor]  # (num_rays, 3) background colors
     march: Optional[MarchKey] = None
     jitter: Optional[torch.Tensor] = None   # (num_rays, num_steps)
     u: Optional[torch.Tensor] = None        # (num_rays, upsample_steps)
 
 
 class StepOut(NamedTuple):
+    """What a step's loss_and_grads gives apply; under a mesh every field
+    covers the global batch (gradients averaged, per-ray values gathered,
+    sample counts summed)."""
     loss: torch.Tensor        # 0-d
     per_ray: torch.Tensor     # (num_rays,) MSE per ray
     n_samples: torch.Tensor   # 0-d valid samples before the point budget
@@ -148,16 +170,38 @@ class Trainer:
     def __init__(self, cfg: NetworkConfig, rcfg: RenderConfig,
                  opt: TrainerOptions, params=None, occupancy_cfg=None,
                  march_cfg=None, mesh=None, clip_loss_fn=None, occupancy=None,
-                 device="cuda"):
+                 device="cuda", *, sample_groups: int = 1):
         """march_cfg + occupancy_cfg enable the occupancy-grid path. The
         occupancy state starts as `occupancy` (for instance a loaded
-        checkpoint's), else empty; `set_occupancy` replaces it."""
+        checkpoint's), else empty; `set_occupancy` replaces it.
+
+        mesh: a parallel.make_mesh mesh of the processes that train together
+        (data parallel over rays; `device` is this rank's). sample_groups:
+        without a mesh, pack each train step in that many blocks as a mesh of
+        that size does (reference trainer.py:493-494), so one process can
+        take a mesh's steps; a mesh sets it to its size. clip_loss_fn:
+        a differentiable (h, w, 3) image -> 0-d loss on the device, which
+        rand_pose >= 0 needs (training/clip_tower.py make_clip_loss_fn)."""
         if march_cfg is not None and occupancy_cfg is None:
             raise ValueError("march_cfg requires occupancy_cfg")
+        self.mesh = mesh
+        self._rank = 0
         if mesh is not None:
-            raise unported("device meshes (data-parallel training and rendering)", "A11")
-        if opt.rand_pose >= 0 or clip_loss_fn is not None:
-            raise unported("rand_pose / CLIP-guided training", "A11")
+            if sample_groups != 1:
+                raise ValueError("a mesh packs in groups of its size: pass a mesh "
+                                 "or sample_groups, not both")
+            sample_groups, self._rank = mesh_size(mesh), mesh_rank(mesh)
+            if opt.num_rays % sample_groups:
+                raise ValueError(
+                    f"num_rays ({opt.num_rays}) must divide evenly across "
+                    f"{sample_groups} devices")
+        self._groups = sample_groups
+        self.clip_loss_fn = clip_loss_fn
+        if opt.rand_pose >= 0 and clip_loss_fn is None:
+            raise RuntimeError(
+                "rand_pose mode needs a differentiable clip_loss_fn "
+                "(training/clip_tower.py make_clip_loss_fn with user-supplied "
+                "pretrained weights); pass one, or a stub scorer")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rcfg = rcfg
@@ -188,7 +232,7 @@ class Trainer:
         self._beam_guard_cache = {}
         self.state = self._init_state(1, params, occupancy)
         self.writer = None  # reference trainer.py:302-309
-        if opt.tensorboard:
+        if opt.tensorboard and self._rank == 0:
             try:
                 from tensorboardX import SummaryWriter
 
@@ -251,6 +295,8 @@ class Trainer:
         self._table_cast_cache = None
 
     def log(self, *msg):
+        if self._rank:
+            return
         text = " ".join(str(m) for m in msg)
         print(f"[{self.opt.name}] {text}")
         os.makedirs(self.workspace, exist_ok=True)
@@ -275,16 +321,18 @@ class Trainer:
 
     def _current_budget(self):
         """The packed shade's sample budget: the smallest bucket covering
-        margin x the host mirror of the mean-count EMA; None shades the full
-        (N, K) lattice."""
+        margin x the host mirror of the mean-count EMA, a multiple of
+        sample_groups; None shades the full (N, K) lattice."""
         if (self.march_cfg is None
                 or not self.opt.point_budget or self._mean_count_host <= 0):
             return None
         nk = self.opt.num_rays * self.march_cfg.samples_per_ray
+        groups = self._groups
         required = self.opt.point_budget_margin * self._mean_count_host
         for frac in sorted(self.opt.point_budget_fracs):
             if frac * nk >= required and frac < 1.0:
-                return max(int(frac * nk), 1)
+                b = int(frac * nk)
+                return max(b - b % groups, groups)
         return None
 
     def _dt_mult(self) -> int:
@@ -328,19 +376,24 @@ class Trainer:
             bg = torch.full((n, 3), 1.0 if self.opt.bg_train == "white" else 0.0,
                             device=self.device)
         rays = draw_rays(self.gen, n, H, W, emap, device=self.device)
+        return StepDraws(idx=idx, rays=rays, bg=bg, **self._render_draws(n))
+
+    def _render_draws(self, n: int) -> dict:
+        """The render's draws for n rays: the march key on the grid path,
+        the jitter and importance draws on the dense one."""
         if self.march_cfg is not None:
-            return StepDraws(idx=idx, rays=rays, bg=bg,
-                             march=draw_march_key(self.gen, n, self.device))
+            return {"march": draw_march_key(self.gen, n, self.device)}
         rcfg = self.rcfg
-        return StepDraws(
-            idx=idx, rays=rays, bg=bg,
-            jitter=torch.rand((n, rcfg.num_steps), generator=self.gen, device=self.device),
-            u=(torch.rand((n, rcfg.upsample_steps), generator=self.gen, device=self.device)
-               if rcfg.upsample_steps > 0 else None))
+        return {"jitter": torch.rand((n, rcfg.num_steps), generator=self.gen,
+                                     device=self.device),
+                "u": (torch.rand((n, rcfg.upsample_steps), generator=self.gen,
+                                 device=self.device) if rcfg.upsample_steps > 0 else None)}
 
     def loss_and_grads(self, state: TrainState, arrays, draws: StepDraws) -> StepOut:
         """Render one ray batch and differentiate the MSE w.r.t. the params
-        (reference trainer.py:455-506; the dense branch :496-500)."""
+        (reference trainer.py:455-506; the dense branch :496-500). Under a
+        mesh this rank renders its block of the batch and packs it into
+        budget / world slots."""
         images = arrays["images"]
         H, W, C = images.shape[1:]
         emap = None if state.error_maps is None else state.error_maps[draws.idx]
@@ -349,33 +402,44 @@ class Trainer:
         gt = images[draws.idx].reshape(H * W, C)[rays["inds"]]
         if C == 4:
             gt = gt[:, :3] * gt[:, 3:] + draws.bg * (1.0 - gt[:, 3:])
+        ro, rd, bg = rays["rays_o"], rays["rays_d"], draws.bg
+        key, jitter, u = draws.march, draws.jitter, draws.u
+        budget, groups = self._current_budget(), self._groups
+        if self.mesh is not None:
+            ro, rd, gt, bg, key, jitter, u = shard_rays(
+                (ro, rd, gt, bg, key, jitter, u), self.mesh)
+            budget, groups = budget and budget // groups, 1
         with torch.enable_grad():
             field = make_field(state.params, self.cfg)
             if self.march_cfg is None:
-                out = render_rays(field, self.rcfg, rays["rays_o"], rays["rays_d"],
-                                  jitter=draws.jitter, u=draws.u, bg_color=draws.bg)
+                out = render_rays(field, self.rcfg, ro, rd, jitter=jitter, u=u, bg_color=bg)
             else:
                 out = render_rays_grid(
-                    field, state.occupancy, self._train_march_cfg(), rays["rays_o"],
-                    rays["rays_d"], key=draws.march, bg_color=draws.bg,
-                    sample_budget=self._current_budget())
+                    field, state.occupancy, self._train_march_cfg(), ro, rd, key=key,
+                    bg_color=bg, sample_budget=budget, sample_groups=groups)
             per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
             loss = per_ray.mean()
-            grads = torch.autograd.grad(loss, _leaves(state.params))
-        return StepOut(loss.detach(), per_ray.detach(), out.get("n_samples"), list(grads),
-                       rays["inds"])
+            grads = list(torch.autograd.grad(loss, _leaves(state.params)))
+        loss, per_ray, n_samples = loss.detach(), per_ray.detach(), out.get("n_samples")
+        if self.mesh is not None:
+            grads = all_mean(grads, self.mesh)
+            loss = all_mean([loss], self.mesh)[0]
+            per_ray = gather_rays(per_ray, self.mesh)
+            if n_samples is not None:
+                n_samples = all_sum(n_samples, self.mesh)
+        return StepOut(loss, per_ray, n_samples, grads, rays["inds"])
 
     @torch.no_grad()
-    def apply(self, state: TrainState, out: StepOut, idx: int, H: int, W: int):
-        """Adam, the EMA of the params, the error-map and mean-count EMAs,
-        and the step count, in place on `state`."""
+    def apply_grads(self, state: TrainState, grads):
+        """Adam at the scheduled lr, the EMA of the params and the step
+        count, in place on `state`."""
         opt = state.optimizer
         leaves = _leaves(state.params)
         st = opt.state.get(leaves[0])
         count = int(st["step"]) if st else 0
         for group in opt.param_groups:
             group["lr"] = self._lr(count)
-        for p, g in zip(leaves, out.grads):
+        for p, g in zip(leaves, grads):
             p.grad = g
         opt.step()
         opt.zero_grad(set_to_none=True)
@@ -383,6 +447,14 @@ class Trainer:
         ema = _leaves(state.ema_params)
         torch._foreach_mul_(ema, d)
         torch._foreach_add_(ema, torch._foreach_mul(leaves, 1.0 - d))
+        state.global_step += 1
+        self._params_version += 1
+
+    @torch.no_grad()
+    def apply(self, state: TrainState, out: StepOut, idx: int, H: int, W: int):
+        """Adam, the EMA of the params, the error-map and mean-count EMAs,
+        and the step count, in place on `state`."""
+        self.apply_grads(state, out.grads)
         if state.error_maps is not None:
             j, i = out.inds // W, out.inds % W
             coarse = (j * EMAP_SIDE // H) * EMAP_SIDE + (i * EMAP_SIDE // W)
@@ -392,8 +464,6 @@ class Trainer:
             ns = out.n_samples.float()
             state.mean_count = torch.where(state.mean_count <= 0.0, ns,
                                            0.9 * state.mean_count + 0.1 * ns)
-        state.global_step += 1
-        self._params_version += 1
 
     def train_step(self, state: TrainState, arrays, draws: StepDraws):
         """One step; returns its loss (a 0-d device tensor)."""
@@ -401,6 +471,57 @@ class Trainer:
         H, W = arrays["images"].shape[1:3]
         self.apply(state, out, draws.idx, H, W)
         return out.loss
+
+    # ------------------------------------------------------ poseless step
+    def clip_frame(self, H: int, W: int):
+        """(scale, rH, rW): the similarity batch's frame of about num_rays
+        pixels (reference trainer.py:596-604, provider.py:287)."""
+        s = float(np.sqrt(H * W / self.opt.num_rays))
+        return s, max(int(H / s), 1), max(int(W / s), 1)
+
+    def draw_clip(self, n: int) -> StepDraws:
+        """A poseless step's draws for its n rays."""
+        return StepDraws(idx=-1, rays=None, bg=None, **self._render_draws(n))
+
+    def clip_loss_and_grads(self, state: TrainState, pose, intrinsics, H: int, W: int,
+                            draws: StepDraws | None = None):
+        """(loss, grads) of one poseless similarity batch (reference
+        trainer.py:556-594): the clip_frame of an H x W camera with
+        intrinsics / scale, rendered from `pose` on white (render_rays_grid
+        on the configured march, else render_rays) and scored by
+        clip_loss_fn. Every rank of a mesh renders the whole frame from the
+        same draws."""
+        scale, rH, rW = self.clip_frame(H, W)
+        pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device)
+        intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32, device=self.device)
+        rays = get_all_rays(pose, intrinsics / scale, rH, rW)
+        draws = draws or self.draw_clip(rH * rW)
+        with torch.enable_grad():
+            field = make_field(state.params, self.cfg)
+            if self.march_cfg is None:
+                out = render_rays(field, self.rcfg, rays["rays_o"], rays["rays_d"],
+                                  jitter=draws.jitter, u=draws.u, bg_color=1.0)
+            else:
+                out = render_rays_grid(field, state.occupancy, self.march_cfg,
+                                       rays["rays_o"], rays["rays_d"], key=draws.march,
+                                       bg_color=1.0)
+            loss = self.clip_loss_fn(out["image"].reshape(rH, rW, 3))
+            grads = list(torch.autograd.grad(loss, _leaves(state.params)))
+        if self.mesh is not None:
+            # the same frame on every rank, but on the card the hash grid's
+            # backward sums with atomic adds, whose order differs from rank to
+            # rank; the mean hands every rank the same bits, so the replicas
+            # stay equal
+            grads = all_mean(grads, self.mesh)
+        return loss.detach(), grads
+
+    def clip_step(self, state: TrainState, pose, intrinsics, H: int, W: int,
+                  draws: StepDraws | None = None):
+        """One poseless step: clip_loss_and_grads, then apply_grads. Returns
+        the loss (a 0-d device tensor)."""
+        loss, grads = self.clip_loss_and_grads(state, pose, intrinsics, H, W, draws)
+        self.apply_grads(state, grads)
+        return loss
 
     # ------------------------------------------------------------- loop
     def train(self, train_ds, valid_ds=None, max_epochs: int = 1,
@@ -428,14 +549,23 @@ class Trainer:
             s = 0
             while s < steps:
                 self._maybe_update_occupancy()
-                if self.opt.scan_steps > 1:
+                rp = self.opt.rand_pose
+                if rp >= 0 and (rp == 0 or s % (rp + 1) == rp):
+                    # a similarity batch: every batch at rand_pose 0, else
+                    # one per rand_pose supervised ones
+                    idxs = [None]
+                elif self.opt.scan_steps > 1 and rp < 0:
                     k = min(self.opt.scan_steps, steps - s, self._steps_to_phase_boundary())
                     idxs = rng.integers(len(train_ds), size=k)
                 else:
                     idxs = [rng.integers(len(train_ds))]
                 for idx in idxs:
-                    draws = self.draw_step(self.state, int(idx), H, W)
-                    loss = self.train_step(self.state, arrays, draws)
+                    if idx is None:
+                        pose = rand_poses(rng, 1, radius=self.opt.rand_pose_radius)[0]
+                        loss = self.clip_step(self.state, pose, arrays["intrinsics"], H, W)
+                    else:
+                        draws = self.draw_step(self.state, int(idx), H, W)
+                        loss = self.train_step(self.state, arrays, draws)
                     total += loss
                     # read on the sweep cadence, where the loop syncs anyway
                     if (self.writer is not None
@@ -479,7 +609,7 @@ class Trainer:
         draws = draw_update(self.gen, state.occupancy, self.occupancy_cfg)
         self.set_occupancy(update_extra_state(
             state.occupancy, self.occupancy_cfg, state.params, self.cfg, draws,
-            thresh_cap=thresh_cap))
+            thresh_cap=thresh_cap, mesh=self.mesh))
 
     @staticmethod
     def _apply_ladder_plan(mcfg, plan):
@@ -725,7 +855,12 @@ class Trainer:
         each chunk shades with its slice of those segments (reference
         trainer.py:1003-1030). Only the block marcher has the split; on byte
         bitfields the chunks march whole, as the reference's march ignores
-        the split there."""
+        the split there.
+
+        Under a mesh every rank renders its block of each chunk (chunk /
+        world rays, which the frame's beam must divide: a beam never
+        straddles two ranks) and the blocks are gathered, so every rank
+        returns the whole frame."""
         grid = self.march_cfg is not None
         with torch.no_grad():
             if self.opt.eval_table_dtype != "float32":
@@ -738,6 +873,8 @@ class Trainer:
             ro, rd, inv = self._frame_rays(pose, intrinsics, H, W, chunk, pixel_offset,
                                            tiles=grid and self.opt.eval_rounds)
             mcfg, occupancy = self._frame_march(intrinsics, H, W, rd)
+            if self.mesh is not None:
+                ro, rd, chunk = self._rank_blocks(ro, rd, chunk, mcfg)
             render_chunk = self._chunk_renderer(mcfg)
             split = self._frame_phase_a(ro, rd, occupancy, mcfg, crop_aabb)
             imgs, depths = [], []
@@ -748,11 +885,33 @@ class Trainer:
                                    float(bg_color), crop_aabb, **kw)
                 imgs.append(out["image"])
                 depths.append(out["depth"])
-            image = torch.cat(imgs)[:n]
-            depth = torch.cat(depths)[:n]
+            image, depth = torch.cat(imgs), torch.cat(depths)
+            if self.mesh is not None:
+                image, depth = self._gather_blocks(image, chunk), self._gather_blocks(depth, chunk)
+            image, depth = image[:n], depth[:n]
             if inv is not None:
                 image, depth = image[inv], depth[inv]
         return image.reshape(H, W, 3), depth.reshape(H, W)
+
+    def _rank_blocks(self, ro, rd, chunk, mcfg):
+        """This rank's block of every chunk of a frame's rays, and the
+        block's size."""
+        world = mesh_size(self.mesh)
+        if chunk % world:
+            raise ValueError(f"the render chunk {chunk} does not divide across {world} ranks")
+        block = chunk // world
+        if mcfg is not None and mcfg.beam > 1 and block % mcfg.beam:
+            raise ValueError(f"a rank's {block} rays of a chunk split the eval beam "
+                             f"{mcfg.beam}: beams must not straddle ranks")
+        r = self._rank
+        return (ro.reshape(-1, world, block, 3)[:, r].reshape(-1, 3),
+                rd.reshape(-1, world, block, 3)[:, r].reshape(-1, 3), block)
+
+    def _gather_blocks(self, x, block):
+        """Every rank's chunk blocks of a render output back in frame order."""
+        world = mesh_size(self.mesh)
+        g = gather_rays(x, self.mesh).reshape(world, -1, block, *x.shape[1:])
+        return g.transpose(0, 1).reshape(-1, *x.shape[1:])
 
     def _frame_phase_a(self, ro, rd, occupancy, mcfg, crop_aabb):
         """The frame-wide phase A ({"z", "dt", "valid"}, each (n, K_A)) that
@@ -794,8 +953,9 @@ class Trainer:
             if gt.shape[-1] == 4:
                 gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
             meter.update(image, gt)
-            self._save_image(os.path.join(
-                out_dir, f"{self.opt.name}_ep{self.epoch:04d}_{i:04d}.png"), image)
+            if self._rank == 0:
+                self._save_image(os.path.join(
+                    out_dir, f"{self.opt.name}_ep{self.epoch:04d}_{i:04d}.png"), image)
         result = meter.measure()
         self.stats["results"].append(result)
         if self.stats["best_result"] is None or result > self.stats["best_result"]:
@@ -810,7 +970,8 @@ class Trainer:
         <workspace>/results: <name>_NNNN.png frames, <name>_NNNN_depth.png
         depth maps (scaled by their maximum) and, with write_video, an mp4 at
         25 fps. Where no mp4 writer opens, the log says so and the PNGs stay.
-        Returns the uint8 frames (reference trainer.py:1321-1366)."""
+        Returns the uint8 frames (reference trainer.py:1321-1366); under a
+        mesh every rank renders and rank 0 writes."""
         import cv2
 
         name = name or self.opt.name
@@ -822,11 +983,13 @@ class Trainer:
                                             ds.intrinsics, ds.H, ds.W, bg_color=1.0)
             img8 = (np.clip(image.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
             frames.append(img8)
+            if self._rank:
+                continue
             self._save_image(os.path.join(out_dir, f"{name}_{i:04d}.png"), img8)
             d = depth.cpu().numpy()
             self._save_image(os.path.join(out_dir, f"{name}_{i:04d}_depth.png"),
                              d / max(float(d.max()), 1e-6))
-        if write_video and frames:
+        if write_video and frames and self._rank == 0:
             path = os.path.join(out_dir, f"{name}.mp4")
             h, w = frames[0].shape[:2]
             video = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, (w, h))
@@ -865,7 +1028,8 @@ class Trainer:
             resolution=resolution, threshold=threshold, device=self.device)
         path = path or os.path.join(self.workspace, "meshes",
                                     f"{self.opt.name}_{self.epoch}.ply")
-        (save_ply if path.endswith(".ply") else save_obj)(path, verts, faces)
+        if self._rank == 0:  # every rank of a mesh extracts the same surface
+            (save_ply if path.endswith(".ply") else save_obj)(path, verts, faces)
         self.log(f"mesh saved to {path}: {len(verts)} verts, {len(faces)} faces")
         return path
 
@@ -886,7 +1050,9 @@ class Trainer:
     def save_checkpoint(self, full: bool = False, best: bool = False):
         """The reference's rolling <name>_epNNNN.npz (full=True adds the
         error maps and occupancy) or the model-only <name>_best.npz (EMA
-        params at the root)."""
+        params at the root). Under a mesh only rank 0 writes."""
+        if self._rank:
+            return
         meta = {"epoch": self.epoch, "global_step": self.global_step,
                 "stats": dict(self.stats), "grid": ckpt_lib.grid_meta_of(self.cfg)}
         if best:

@@ -97,6 +97,37 @@ def test_main_train_then_test(scene_dir, tmp_path, mode):
 @pytest.mark.parametrize("flag", [["--gui"], ["--rand_pose", "0"],
                                   ["--clip_weights", "w.pt", "--clip_text_embed", "t.npy"]],
                          ids=["gui", "rand_pose", "clip"])
-def test_main_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        main_nerf.main(["scene", "--device", "cpu", *flag])
+def test_main_unported_flags_raise(flag, scene_dir, tmp_path, monkeypatch):
+    """--gui still raises NotImplementedError naming ROADMAP A11. The CLIP
+    flags now run: --rand_pose 0 without a tower raises the Trainer's
+    RuntimeError, half of the --clip_weights / --clip_text_embed pair exits,
+    and with a tiny tower (.npz of seeded arrays) main trains its 100 steps,
+    poseless ones at --rand_pose 0, supervised ones with the tower loaded."""
+    if flag == ["--gui"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            main_nerf.main(["scene", "--device", "cpu", *flag])
+        return
+    from test_torch_clip import write_clip_npz
+
+    weights = write_clip_npz(str(tmp_path / "clip_tiny.npz"))
+    np.save(tmp_path / "text.npy", np.random.default_rng(0).normal(size=16).astype(np.float32))
+    ws = str(tmp_path / "ws")
+    base = [scene_dir, *SMALL, "-O", "--ff", "--workspace", ws]
+    with pytest.raises(SystemExit, match="come as a pair"):
+        main_nerf.main(base + ["--clip_weights", weights])
+    pair = ["--clip_weights", weights, "--clip_text_embed", str(tmp_path / "text.npy")]
+    if flag[0] == "--rand_pose":
+        with pytest.raises(RuntimeError, match="clip_loss_fn"):
+            main_nerf.main(base + flag)
+        from nerfnav_tpu_torch.training.trainer import Trainer
+
+        calls, step = [], Trainer.clip_step
+        monkeypatch.setattr(Trainer, "clip_step",
+                            lambda self, *a, **k: calls.append(1) or step(self, *a, **k))
+        tr = main_nerf.main(base + flag + pair)
+        assert len(calls) == 100 and tr.opt.rand_pose == 0
+    else:
+        tr = main_nerf.main(base + pair)
+        assert tr.opt.rand_pose == -1
+    assert tr.clip_loss_fn.tower.cfg["image_size"] == 32
+    assert tr.global_step == 100 and np.isfinite(tr.stats["loss"][0])

@@ -208,10 +208,13 @@ def test_unported_options_raise(tmp_path):
     """The options this test once pinned as unported now run (the
     frame-level phase A, the phase-A0 prefilter, depth windows, the
     occupancy debounce; their parity: test_torch_march_options.py,
-    test_torch_occupancy.py); what the port still lacks raises
-    NotImplementedError naming ROADMAP: sample_groups > 1 and device
-    meshes."""
+    test_torch_occupancy.py), and so do sample_groups > 1 and device meshes
+    (their parity: test_torch_parallel.py): grouped packing at a budget, and
+    a one-rank gloo mesh whose Trainer renders the meshless frame."""
+    import torch.distributed as dist
+
     from nerfnav_tpu_torch.models.occupancy import init_occupancy_state
+    from nerfnav_tpu_torch.parallel import make_mesh
 
     _, tt, pose, intr = _trainers(tmp_path, _net_cfg(), 1.0, {})
     tt.opt.eval_frame_phase_a = True
@@ -229,11 +232,21 @@ def test_unported_options_raise(tmp_path):
                               device="cpu")
     assert not bool(st["pending"].any())
     field = trend.make_field(tt.params, tt.cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        trend.render_rays_grid(field, tt.occupancy, tt.march_cfg, torch.as_tensor(o),
-                               torch.as_tensor(d), sample_groups=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TTrainer(tt.cfg, tt.rcfg, TOpts(), mesh=object(), device="cpu")
+    rays = (torch.as_tensor(o), torch.as_tensor(d))
+    out = trend.render_rays_grid(field, tt.occupancy, tt.march_cfg, *rays, sample_groups=2,
+                                 sample_budget=8)
+    assert bool(torch.isfinite(out["image"]).all()) and int(out["n_samples"]) > 8
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        tm_ = TTrainer(tt.cfg, tt.rcfg, TOpts(workspace=str(tmp_path / "m")),
+                       params=tt.params, occupancy_cfg=tt.occupancy_cfg,
+                       march_cfg=tt.march_cfg, occupancy=tt.occupancy,
+                       mesh=make_mesh(device_type="cpu"), device="cpu")
+        img_m, _ = tm_.render_full(tm_.params, pose, intr, 8, 8)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(img_m, tt.render_full(tt.params, pose, intr, 8, 8)[0])
 
 
 def test_beam_rules_match(tmp_path):
