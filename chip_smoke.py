@@ -71,6 +71,13 @@
        tick 1's front end / filter / replan split on the unfused sequence
        (host clock), a card-only profile of tick 2 (kernels, idle share,
        top kernels) and tick 3's host syncs by call site.
+   (a') one Agent.step with backend="blender" through a stand-in for
+       Blender that the script writes under build/ (its shebang this
+       Python, which has cv2): it reads pose.json and writes an RGBA PNG
+       whose pixels depend on the pose. The observation must equal the PNG
+       composited on white; the step's state, this device against the CPU
+       port's agent, within 1e-5; get_img at one fixed pose the same uint8
+       image on both.
    (b) the trained flagship field loaded as cli/simulate.py loads a trainer
        checkpoint (`-O`: cell 4x8 @ 2^17, xla bf16 MLPs, bound 2): an
        800x800 observation from the training orbit; the filter's dense,
@@ -177,7 +184,35 @@
        800x800 frames, card vs CPU (TOWER_TOL) and LPIPS(x, x) = 0.
    (d) profiling: utils/profiling.device_timer around a 256x256 frame and a
        trace of one poseless step written, with fused-MLP kernels in it.
-10. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+10. Viewer phase, the interactive viewer (gui/viewer.py) at the full width
+   of `main_nerf --gui`: the defaults of cli/flags.py (1920x1080, radius 5,
+   fovy 50, max_spp 64; the rehearsal's 96x64), on the training phase's
+   trained field (its full checkpoint, loaded into the -O --ff training
+   configuration) and its four 800x800 targets:
+   (3) first, Trainer.test_gui at 64x64, downscale 0.5, a crop box and a
+       Halton offset on this device against the CPU port loaded from the
+       same checkpoint (the slice phase's crop bar);
+   (1) VIEW_CHUNKS train chunks through NeRFGUI.train_step (the first of
+       16 steps, then as the 500 ms budget sizes them): finite losses, 2
+       fused launches a step (the sweeps' counted apart), steps/s and the
+       next chunk's steps;
+   (2) from a fresh camera, render_frame's passes: the fast pass at 0.25
+       (480x270), the refinements at 0.5 and 1.0, one Halton-jittered pass
+       at 1920x1080, each (1080, 1920, 3), finite, 0 < mean < 1, launching
+       the fused kernel, with its ms and launches and the downscale the
+       200 ms budget picks after the fast pass; the jittered pass must equal
+       (previous + jittered render) / 2; one profiled fast pass (idle share);
+   (4) NeRFGUI.serve on a free port of 127.0.0.1 in a thread: GET /, POST
+       /orbit and GET /frame (a JPEG decoding to the frame's shape), POST
+       /set bg_color 0 and /frame, POST /set dt_gamma 1/128 and /frame (its
+       train chunk must march at 1/128: the training march config cached at
+       0 is dropped), POST /save_ckpt and POST /save_mesh (256^3 on the
+       card: 256 fused launches, a PLY written); each request's round trip
+       ms and bytes.
+   matplotlib is not on the card's machine: nav/viz.py and render_viz are
+   held by CPU tests only (tests/test_torch_viz.py), as are the dataset
+   converters and the Blender scripts, which have no card path.
+11. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1445,6 +1480,77 @@ def nav_card_vs_cpu(device):
     check(sig_rel <= 1e-3, f"sig_post {sig_rel} away from the CPU port's")
 
 
+BLENDER_STAND_IN = """#!{python}
+# Blender stand-in: blender -b <blend> -P <script> -- pose.json out.png
+import json, sys
+import cv2
+import numpy as np
+
+argv = sys.argv[sys.argv.index("--") + 1:]
+with open(argv[0]) as f:
+    req = json.load(f)
+t = np.round(np.asarray(req["pose"])[:3, 3] * 100.0)
+h, w = req["res_y"], req["res_x"]
+y, x = np.mgrid[0:h, 0:w]
+rgba = np.zeros((h, w, 4), np.uint8)
+rgba[..., 0] = (x * 37 + 3 * t[0]) % 256
+rgba[..., 1] = (y * 11 + 5 * t[1]) % 256
+rgba[..., 2] = 40
+rgba[..., 3] = (x * 5 + y * 29 + 2 * t[2]) % 256
+cv2.imwrite(argv[1], cv2.cvtColor(rgba, cv2.COLOR_RGBA2BGRA))
+"""
+
+
+def nav_blender(device, nav):
+    """Part (a'): one Agent.step under the Blender backend, through a
+    stand-in for Blender written under build/ (run by this Python, which has
+    cv2: it answers the request with an RGBA PNG whose pixels depend on the
+    pose), on this device and on the CPU port: the observation is the PNG
+    composited on white, the states agree at the nav tests' 1e-5, and
+    get_img at one fixed pose returns the same image on both."""
+    import cv2
+
+    from nerfnav_tpu_torch.nav.agent import Agent, AgentConfig, body_state_to_camera_pose
+    from nerfnav_tpu_torch.nav.dynamics import DynamicsConfig
+
+    stand_in = os.path.join(NAV_WS, "blender_stand_in")
+    os.makedirs(NAV_WS, exist_ok=True)
+    with open(stand_in, "w") as f:
+        f.write(BLENDER_STAND_IN.format(python=sys.executable))
+    os.chmod(stand_in, 0o755)
+    x0 = camera_state(yaw_pose(0.0))
+    agents = {}
+    for name, dev in (("dev", device), ("cpu", torch.device("cpu"))):
+        cfg = AgentConfig(dyn=DynamicsConfig(dt=0.1), H=nav["obs"], W=nav["obs"],
+                          focal=float(nav["obs"]), backend="blender", blend_file="scene.blend",
+                          blender_cmd=stand_in, cache_dir=os.path.join(NAV_WS, f"blender_{name}"))
+        agents[name] = Agent(x0, cfg, device=dev)
+    action = NAV_HOVER + np.asarray([0.6, 0.05, -0.04, 0.02], np.float32)
+    t0 = time.perf_counter()
+    img, state, pose = agents["dev"].step(action)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    _, state_cpu, _ = agents["cpu"].step(action)
+    png = cv2.imread(os.path.join(NAV_WS, "blender_dev", "obs.png"), cv2.IMREAD_UNCHANGED)
+    rgba = cv2.cvtColor(png, cv2.COLOR_BGRA2RGBA).astype(np.float32) / 255.0
+    want = (np.clip(rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:]), 0, 1) * 255).astype(
+        np.uint8)
+    fixed = body_state_to_camera_pose(torch.as_tensor(x0)).numpy()
+    fixed_imgs = [a.get_img(fixed) for a in agents.values()]
+    out = {"step_ms": step_ms, "state_max_abs_vs_cpu": float(np.abs(state - state_cpu).max()),
+           "moved": float(np.abs(state - x0).max()), "image": list(img.shape),
+           "image_mean": float(img.mean())}
+    log("nav blender backend (stand-in), this device vs the CPU port:", json.dumps(out))
+    check(img.shape == (nav["obs"], nav["obs"], 3) and np.array_equal(img, want),
+          "the Blender observation is not the stand-in's PNG composited on white")
+    check(out["state_max_abs_vs_cpu"] <= 1e-5 and out["moved"] > 1e-4,
+          f"the Blender agent's step: {out}")
+    check(np.array_equal(*fixed_imgs),
+          "the Blender observation at one pose differs between this device's agent and the CPU's")
+    check(np.abs(pose - body_state_to_camera_pose(torch.as_tensor(state)).numpy()).max() == 0,
+          "the step's pose is not its state's")
+    return out
+
+
 def nav_phase(device, sizes, card):
     """Both parts of the nav phase; returns the fused-MLP launches in it
     (nav forces the xla MLP, so 0)."""
@@ -1454,6 +1560,7 @@ def nav_phase(device, sizes, card):
     nav_front_end()
     fm.fused_mlp.launches = 0
     nav_mission(device, nav, card)
+    nav_blender(device, nav)
     nav_network(device, sizes, nav, card)
     launches = fm.fused_mlp.launches
     log(f"nav phase: fused_mlp launches {launches} (nav runs the xla MLP chain)")
@@ -2956,7 +3063,6 @@ def train_options_phase(device, sizes, card):
     prof = profiling_checks(tr, device)
     stamp("profiling")
     shutil.rmtree(TO_DIR, ignore_errors=True)
-    shutil.rmtree(OPT_DIR, ignore_errors=True)
     log(f"training-options phase: {time.perf_counter() - phase_t0:.1f} s ({card}); s by step",
         json.dumps(took_s))
     return {"mesh_step_launches": dp["fused_launches_per_mesh_step"],
@@ -2964,6 +3070,271 @@ def train_options_phase(device, sizes, card):
             "clip_step_launches": clip["runs"][0]["fused_launches"][-1],
             "clip_step_ms": clip["clip_step_ms"], "lpips_ms": lp["ms"],
             "frame_256_ms": prof["frame_256_ms"]}
+
+
+# ---------------------------------------------------------------- viewer phase
+VIEW_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_viewer")
+VIEW_CHUNKS = 3     # train chunks: the first of 16 steps, then as the budget sizes them
+VIEW_DT_GAMMA = 1.0 / 128  # the dt_gamma the server's slider sets
+# the viewer's size on the card is the --gui defaults of cli/flags.py; the
+# rehearsal's is tiny
+VIEW_REHEARSAL = {"W": 96, "H": 64}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(base, method, path, body=None, tries=100):
+    """(status, reply bytes, round trip ms) of one request; retries while
+    the server thread is not listening yet."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    for _ in range(tries):
+        req = urllib.request.Request(base + path, data=data, method=method)
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, r.read(), (time.perf_counter() - t0) * 1e3
+        except urllib.error.HTTPError as e:
+            return e.code, b"", (time.perf_counter() - t0) * 1e3
+        except urllib.error.URLError:
+            time.sleep(0.05)
+    raise RuntimeError(f"chip_smoke: no server answered {method} {path}")
+
+
+def viewer_card_vs_cpu(device, sizes, flags):
+    """(3): Trainer.test_gui at 64x64, downscale 0.5 (a 32x32 render
+    resized on the host), inside a crop box and at a Halton offset, from the
+    viewer's camera, on this device and on the CPU port loaded from the same
+    checkpoint; the bar of the slice phase's 64x64 crop."""
+    from nerfnav_tpu_torch.gui.viewer import OrbitCamera, _halton_offset
+
+    cam = OrbitCamera(64, 64, r=flags.radius, fovy=flags.fovy)
+    cam.orbit(150, 60)
+    kw = dict(downscale=0.5, crop_aabb=[-1.5, -1.0, -1.5, 1.0, 1.5, 1.5],
+              pixel_offset=_halton_offset(5))
+    imgs = []
+    for dev, ws in ((device, VIEW_DIR + "_dev"), (torch.device("cpu"), VIEW_DIR + "_cpu")):
+        t = train_trainer(dev, sizes, ws)
+        t.load_checkpoint(OPT_CKPT)
+        imgs.append(t.test_gui(cam.pose, cam.intrinsics, 64, 64, **kw)["image"])
+        shutil.rmtree(ws, ignore_errors=True)
+    diff = np.abs(imgs[0] - imgs[1])
+    out = {"mean_abs": float(diff.mean()), "max_abs": float(diff.max()),
+           "frac_over_5e-2": float((diff > 5e-2).mean()), "crop_mean": float(imgs[1].mean())}
+    log("viewer test_gui 64x64 at downscale 0.5, crop and offset, this device vs the CPU port:",
+        json.dumps(out))
+    check(imgs[0].shape == (64, 64, 3) and np.isfinite(imgs[0]).all(), "viewer crop not finite")
+    check(out["mean_abs"] <= 5e-3 and out["frac_over_5e-2"] <= 0.01,
+          f"viewer crop mismatch {out}")
+    return out
+
+
+def viewer_train_chunks(gui, tr):
+    """(1): VIEW_CHUNKS train chunks; the fused launches of each chunk's
+    steps (the sweeps' counted apart) must be 2 a step."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    sweep = {"launches": 0}
+    update = tr._maybe_update_occupancy
+
+    def counted_update():
+        before = fm.fused_mlp.launches
+        update()
+        sweep["launches"] += fm.fused_mlp.launches - before
+
+    tr._maybe_update_occupancy = counted_update
+    chunks = []
+    try:
+        for _ in range(VIEW_CHUNKS):
+            steps, sweep["launches"] = gui.train_steps, 0
+            before = fm.fused_mlp.launches
+            out = gui.train_step()
+            chunks.append({"steps": steps, "loss": out["loss"], "s": out["time"],
+                           "steps_per_s": out["steps_per_sec"],
+                           "fused_launches_in_steps": fm.fused_mlp.launches - before
+                           - sweep["launches"], "fused_launches_in_sweeps": sweep["launches"],
+                           "next_train_steps": gui.train_steps})
+    finally:
+        del tr._maybe_update_occupancy
+    log("viewer train chunks (the 500 ms budget sizes the next):", json.dumps(chunks))
+    check(chunks[0]["steps"] == 16, f"the first chunk took {chunks[0]['steps']} steps")
+    check(all(math.isfinite(c["loss"]) for c in chunks), "a non-finite viewer train loss")
+    if tr.device.type == "cuda":
+        check(all(c["fused_launches_in_steps"] == 2 * c["steps"] for c in chunks),
+              "a viewer train step did not launch the fused MLP twice")
+    return chunks
+
+
+def viewer_passes(gui, tr, device, card):
+    """(2): from a fresh camera the fast pass at 0.25, the refinements at
+    0.5 and 1.0, one Halton-jittered pass at full resolution, each timed
+    with its fused launches; the jittered pass must average into the frame."""
+    from nerfnav_tpu_torch.gui.viewer import _halton_offset
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    H, W = gui.cam.H, gui.cam.W
+    gui.touch()
+    seen = []
+    test_gui = tr.test_gui
+    tr.test_gui = lambda *a, **k: seen.append((k, test_gui(*a, **k))) or seen[-1][1]
+    passes, frames = [], []
+    try:
+        for name in ("fast", "refine 0.5", "refine 1.0", "spp 2"):
+            before, prev = fm.fused_mlp.launches, gui._acc
+            sync(device)
+            t0 = time.perf_counter()
+            frame = gui.render_frame()
+            sync(device)
+            kw, out = seen[-1]
+            rh, rw = max(int(H * kw["downscale"]), 8), max(int(W * kw["downscale"]), 8)
+            passes.append({"pass": name, "downscale": kw["downscale"], "render": [rw, rh],
+                           "ms": (time.perf_counter() - t0) * 1e3, "test_gui_ms": out["time"] * 1e3,
+                           "fused_launches": fm.fused_mlp.launches - before, "spp": gui.spp,
+                           "pixel_offset": kw.get("pixel_offset"),
+                           "downscale_after": gui.downscale, "mean": float(frame.mean())})
+            frames.append((prev, frame, out["image"]))
+            check(frame.shape == (H, W, 3) and np.isfinite(frame).all(),
+                  f"viewer pass {name}: {frame.shape}, finite {np.isfinite(frame).all()}")
+            check(0.0 < float(frame.mean()) < 1.0, f"viewer pass {name}: mean {frame.mean()}")
+    finally:
+        del tr.test_gui
+    log("viewer passes at", f"{W}x{H} ({card}):", json.dumps(passes))
+    check([p["downscale"] for p in passes] == [0.25, 0.5, 1.0, 1.0]
+          and passes[3]["pixel_offset"] == _halton_offset(1) and gui.spp == 2,
+          f"the viewer's passes ran as {passes}")
+    prev, frame, jittered = frames[3]
+    check(np.array_equal(frame, (prev + jittered) / 2),
+          "the jittered pass is not the mean of the frame and its render")
+    check(float(np.abs(jittered - prev).mean()) > 0, "the Halton offset moved no pixel")
+    if device.type == "cuda":
+        cam = gui.cam
+        prof = profile_call(lambda: tr.test_gui(cam.pose, cam.intrinsics, W, H, downscale=0.25),
+                            passes[0]["test_gui_ms"], "profiled viewer fast pass")
+        if prof:
+            passes[0]["idle_share"] = prof["device_idle_share_of_unprofiled_call"]
+        for p in passes:
+            check(p["fused_launches"] > 0, f"viewer pass {p['pass']} launched no fused MLP")
+    return passes
+
+
+def viewer_server(gui, tr, device, sizes):
+    """(4): the web server on a free port of 127.0.0.1 in a thread: the page,
+    /orbit and /frame, /set bg_color and /frame, /set dt_gamma and /frame
+    (which trains a chunk first), /save_ckpt and /save_mesh."""
+    import threading
+
+    import cv2
+
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+    from nerfnav_tpu_torch.training import trainer as trainer_mod
+
+    if device.type != "cuda":  # the mesh at the rehearsal's lattice
+        save_mesh = tr.save_mesh
+        tr.save_mesh = lambda: save_mesh(resolution=sizes["mesh_res"])
+    march_dt = []
+    render_grid = trainer_mod.render_rays_grid
+    trainer_mod.render_rays_grid = lambda f, occ, mcfg, *a, **k: march_dt.append(
+        mcfg.dt_gamma) or render_grid(f, occ, mcfg, *a, **k)
+    H, W = gui.cam.H, gui.cam.W
+    script = [("GET", "/", None), ("POST", "/orbit", {"dx": 120, "dy": 40}),
+              ("GET", "/frame", None), ("POST", "/set", {"bg_color": 0}),
+              ("GET", "/frame", None), ("POST", "/set", {"dt_gamma": VIEW_DT_GAMMA}),
+              ("GET", "/frame", None), ("POST", "/save_ckpt", {}), ("POST", "/save_mesh", {})]
+    port = free_port()
+    server = threading.Thread(target=gui.serve, kwargs={"port": port, "steps": len(script)})
+    server.start()
+    replies, page = [], b""
+    try:
+        for method, path, body in script:
+            before, steps_before, march_dt[:] = fm.fused_mlp.launches, tr.global_step, []
+            status, data, ms = http_call(f"http://127.0.0.1:{port}", method, path, body)
+            rec = {"request": f"{method} {path}", "status": status, "ms": ms, "bytes": len(data),
+                   "fused_launches": fm.fused_mlp.launches - before,
+                   "train_steps": tr.global_step - steps_before}
+            if path == "/frame":
+                dec = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+                check(data[:2] == b"\xff\xd8" and dec is not None and dec.shape == (H, W, 3),
+                      f"/frame sent no {W}x{H} JPEG: {data[:4]}")
+                rec.update(downscale=gui._acc_scale, march_dt_gamma=sorted(set(march_dt)))
+            elif path == "/":
+                page = data
+            else:
+                rec["reply"] = json.loads(data)
+            replies.append(rec)
+            check(status == 200, f"{method} {path} answered {status}")
+    finally:
+        server.join(timeout=900)
+        trainer_mod.render_rays_grid = render_grid
+        if device.type != "cuda":
+            del tr.save_mesh
+    log("viewer server:", json.dumps(replies))
+    check(not server.is_alive(), "the viewer server did not stop")
+    check(b"<script>" in page, "GET / sent no page")
+    check(gui.bg_color == 0.0 and gui.cam.azimuth != 0.0, "the widgets did not apply")
+    check(tr.march_cfg.dt_gamma == VIEW_DT_GAMMA
+          and tr._train_march_cfg().dt_gamma == VIEW_DT_GAMMA
+          and replies[6]["march_dt_gamma"] == [VIEW_DT_GAMMA] and replies[6]["train_steps"] > 0,
+          f"the dt_gamma slider did not reach the next train chunk: {replies[6]}")
+    check(replies[2]["march_dt_gamma"] == [0.0], f"the first chunk marched at {replies[2]}")
+    ckpts = os.listdir(os.path.join(VIEW_DIR, "checkpoints"))
+    check(replies[7]["reply"]["status"] == "checkpoint saved" and ckpts, "no checkpoint saved")
+    mesh_path = replies[8]["reply"]["status"].split("mesh saved: ", 1)[-1]
+    check(os.path.exists(mesh_path), f"no mesh written: {replies[8]}")
+    if device.type == "cuda":
+        want = -(-256**3 // MESH_N)
+        check(replies[8]["fused_launches"] == want,
+              f"/save_mesh launched the fused MLP {replies[8]['fused_launches']} times, not {want}")
+    return replies
+
+
+def viewer_phase(device, sizes, card):
+    """The interactive viewer at the --gui defaults on the training phase's
+    trained field (see the module docstring). Returns the fields the kernels
+    line carries."""
+    from nerfnav_tpu_torch.cli.flags import build_parser
+    from nerfnav_tpu_torch.gui import NeRFGUI
+
+    phase_t0 = time.perf_counter()
+    took_s = {}
+
+    def stamp(what):
+        took_s[what] = time.perf_counter() - phase_t0 - sum(took_s.values())
+
+    flags = build_parser("chip_smoke").parse_args(["scene"])
+    W, H = (flags.W, flags.H) if device.type == "cuda" else (VIEW_REHEARSAL["W"],
+                                                             VIEW_REHEARSAL["H"])
+    shutil.rmtree(VIEW_DIR, ignore_errors=True)
+    crop = viewer_card_vs_cpu(device, sizes, flags)
+    stamp("card_vs_cpu")
+    tr = train_trainer(device, sizes, VIEW_DIR)
+    tr.load_checkpoint(OPT_CKPT)
+    gui = NeRFGUI(tr, target_frames(sizes["hw"]), W=W, H=H, radius=flags.radius,
+                  fovy=flags.fovy, max_spp=flags.max_spp)
+    chunks = viewer_train_chunks(gui, tr)
+    stamp("train_chunks")
+    passes = viewer_passes(gui, tr, device, card)
+    stamp("passes")
+    server = viewer_server(gui, tr, device, sizes)
+    stamp("server")
+    shutil.rmtree(VIEW_DIR, ignore_errors=True)
+    shutil.rmtree(OPT_DIR, ignore_errors=True)
+    log(f"viewer phase: {time.perf_counter() - phase_t0:.1f} s ({card}); s by step",
+        json.dumps(took_s))
+    return {"viewer_launches_per_train_step": [c["fused_launches_in_steps"] / c["steps"]
+                                               for c in chunks],
+            "viewer_pass_launches": {p["pass"]: p["fused_launches"] for p in passes},
+            "viewer_pass_ms": {p["pass"]: p["ms"] for p in passes},
+            "viewer_frame_round_trip_ms": [r["ms"] for r in server if r["request"] == "GET /frame"],
+            "viewer_mesh_launches": server[8]["fused_launches"],
+            "viewer_crop_mean_abs": crop["mean_abs"]}
 
 
 def main():
@@ -3016,6 +3387,7 @@ def main():
     bg_launches = bg_phase(device, sizes, card)
     opt_out = options_phase(device, sizes, card)
     train_opt_out = train_options_phase(device, sizes, card)
+    viewer_out = viewer_phase(device, sizes, card)
     entry = {"name": "fused_mlp", "route": "cuda",
              "source": "nerfnav_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "nerfnav_tpu/ops/fused_mlp.py:58",
@@ -3025,7 +3397,7 @@ def main():
              "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches,
              "nav_launches": nav_launches, **ref_launches,
              **{k: v for k, v in mlp.items() if k.startswith(("bg_", "mesh_"))},
-             **bg_launches, **opt_out, **train_opt_out}
+             **bg_launches, **opt_out, **train_opt_out, **viewer_out}
     log(json.dumps({"kernels": [entry]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)

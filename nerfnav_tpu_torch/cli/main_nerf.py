@@ -4,6 +4,7 @@
     python -m nerfnav_tpu_torch.cli.main_nerf <scene> --ff              # dense, 512 samples
     python -m nerfnav_tpu_torch.cli.main_nerf <scene> -O --ff           # the flagship grid
     python -m nerfnav_tpu_torch.cli.main_nerf <scene> ... --test        # eval + test path
+    python -m nerfnav_tpu_torch.cli.main_nerf <scene> -O --ff --gui     # viewer on :7860
 
 Counterpart of nerfnav_tpu/cli/main_nerf.py, with the same flags (shared in
 cli/flags.py). Training runs max(iters // steps_per_epoch, 1) epochs of
@@ -12,8 +13,10 @@ checkpoint (`--ckpt`), evaluates the val split and writes the test path's
 (else the val split's) frames, depth maps and video under
 <workspace>/results. `--rand_pose` trains from random orbit poses scored by
 the CLIP tower of `--clip_weights` against `--clip_text_embed`
-(training/clip_tower.py; both files are the user's). Runs on the card unless
-`--device cpu` asks for the CPU.
+(training/clip_tower.py; both files are the user's). `--gui` serves the
+interactive viewer (gui/viewer.py) on 127.0.0.1:7860 at --W x --H, --radius,
+--fovy and --max_spp, training as it renders; forward the port over SSH to
+view it. Runs on the card unless `--device cpu` asks for the CPU.
 """
 
 import sys
@@ -23,11 +26,9 @@ def make_trainer(opt):
     """(Trainer, DatasetOptions) from parsed flags, on opt.device."""
     from nerfnav_tpu_torch.cli.flags import make_configs
     from nerfnav_tpu_torch.data.provider import DatasetOptions
-    from nerfnav_tpu_torch.device import resolve_device, unported
+    from nerfnav_tpu_torch.device import resolve_device
     from nerfnav_tpu_torch.training.trainer import Trainer, TrainerOptions
 
-    if opt.gui:
-        raise unported("the interactive viewer (--gui)", "A11")
     if (opt.clip_weights is None) != (opt.clip_text_embed is None):
         raise SystemExit(
             "--clip_weights and --clip_text_embed come as a pair (the .npy text "
@@ -79,6 +80,12 @@ def main(argv=None):
         trainer.test(test_ds, write_video=True)
         return trainer
     train_ds = NeRFDataset(ds_opt, split="train")
+    if opt.gui:
+        from nerfnav_tpu_torch.gui import NeRFGUI
+
+        NeRFGUI(trainer, train_ds, W=opt.W, H=opt.H, radius=opt.radius, fovy=opt.fovy,
+                max_spp=opt.max_spp).serve(port=7860)
+        return trainer
     steps_per_epoch = max(len(train_ds), 100)
     max_epochs = max(opt.iters // steps_per_epoch, 1)
     trainer.train(train_ds, valid_ds=val_ds, max_epochs=max_epochs,

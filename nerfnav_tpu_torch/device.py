@@ -1,5 +1,4 @@
-"""Device resolution, cached device constants, and the error raised by
-options the port lacks."""
+"""Device resolution and cached device constants."""
 
 from functools import lru_cache
 
@@ -35,8 +34,3 @@ def device_const(values, device) -> torch.Tensor:
 
     return _const(freeze(values), str(torch.device(device)))
 
-
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error for an option or path this port does not cover yet."""
-    return NotImplementedError(
-        f"{what} is not ported to nerfnav_tpu_torch yet (ROADMAP {item})")

@@ -5,15 +5,22 @@ through `drone_dynamics` with optional Gaussian process noise (host numpy
 rng, `add_noise_to_state`), the body state maps to a camera pose through
 `BODY_TO_CAM`, and the "nerf" backend renders the observation from a
 `Field`, densely (`render_rays`, 192 samples) or over an occupancy grid
-(`render_rays_grid`). The Blender file-RPC backend is ROADMAP A11.
+(`render_rays_grid`). The "blender" backend is a file RPC to a headless
+Blender: the pose as JSON in `cache_dir`, then
+`blender -b <blend_file> -P <render_script> -- pose.json obs.png`
+(sim/blender_render.py by default), and the RGBA PNG it writes composited on
+white.
 """
 
+import json
+import os
+import subprocess
 from dataclasses import dataclass, field as dfield
 
 import numpy as np
 import torch
 
-from nerfnav_tpu_torch.device import device_const, resolve_device, unported
+from nerfnav_tpu_torch.device import device_const, resolve_device
 from nerfnav_tpu_torch.nav.dynamics import DynamicsConfig, drone_dynamics
 from nerfnav_tpu_torch.nav.math_utils import vec_to_rot_matrix
 
@@ -43,22 +50,23 @@ class AgentConfig:
     H: int = 800
     W: int = 800
     focal: float = 800.0
-    backend: str = "nerf"             # "nerf" | "blender" (ROADMAP A11)
+    backend: str = "nerf"             # "nerf" | "blender"
     blend_file: str = ""
     blender_cmd: str = "blender"
     cache_dir: str = "sim_img_cache"
-    render_script: str = ""
+    render_script: str = ""           # default: sim/blender_render.py
 
 
 class Agent:
     def __init__(self, start_state, cfg: AgentConfig, field=None, render_chunk=4096,
                  march=None, device="cuda"):
         """field: the Field the nerf backend renders; march: optional
-        (occupancy dict, MarchConfig) for the occupancy-grid render."""
-        if cfg.backend == "blender":
-            raise unported("the Blender observation backend", "A11")
-        if cfg.backend != "nerf":
+        (occupancy dict, MarchConfig) for the occupancy-grid render. The
+        dynamics run on `device` with either backend."""
+        if cfg.backend not in ("nerf", "blender"):
             raise ValueError(f"unknown agent backend {cfg.backend!r}")
+        if cfg.backend == "blender":
+            os.makedirs(cfg.cache_dir, exist_ok=True)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.state = np.asarray(start_state, np.float32)
@@ -88,6 +96,11 @@ class Agent:
 
     def get_img(self, pose):
         """The (H, W, 3) uint8 observation at a camera pose."""
+        if self.cfg.backend == "blender":
+            return self._get_img_blender(pose)
+        return self._get_img_nerf(pose)
+
+    def _get_img_nerf(self, pose):
         from nerfnav_tpu_torch.data.rays import get_all_rays
         from nerfnav_tpu_torch.models.renderer import (
             RenderConfig, render_rays, render_rays_grid,
@@ -112,4 +125,31 @@ class Agent:
                 else:
                     outs.append(render_rays(self.field, rcfg, o, d, bg_color=1.0)["image"])
         img = torch.cat(outs)[:n].reshape(H, W, 3).cpu().numpy()
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+    def _get_img_blender(self, pose):
+        """File RPC to a headless Blender process: writes the request, runs
+        Blender on it (a failed run raises) and reads the PNG it wrote."""
+        import cv2
+
+        cfg = self.cfg
+        pose_path = os.path.join(cfg.cache_dir, "pose.json")
+        img_path = os.path.join(cfg.cache_dir, "obs.png")
+        with open(pose_path, "w") as f:
+            json.dump({"pose": np.asarray(pose, np.float64).tolist(), "res_x": cfg.W,
+                       "res_y": cfg.H, "trans": True, "mode": "RGBA"}, f)
+        script = cfg.render_script or os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sim",
+            "blender_render.py")
+        subprocess.run([cfg.blender_cmd, "-b", cfg.blend_file, "-P", script, "--",
+                        pose_path, img_path], check=True, capture_output=True)
+        img = cv2.imread(img_path, cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise FileNotFoundError(f"cv2 cannot read Blender's observation {img_path}")
+        if img.ndim == 3:  # cv2 reads BGR(A)
+            img = cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA if img.shape[-1] == 4
+                               else cv2.COLOR_BGR2RGB)
+        img = img.astype(np.float32) / 255.0
+        if img.shape[-1] == 4:  # composite on a white background
+            img = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
         return (np.clip(img, 0, 1) * 255).astype(np.uint8)

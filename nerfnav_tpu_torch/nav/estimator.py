@@ -20,7 +20,10 @@ draws (`sel`, indices into the interest-pixel pool) come from a
 torch.Generator on the device and are passed into the solve, so a test can
 inject the JAX draws. The feature front end (keypoints, interest mask,
 pixel pool) runs on the host; `find_poi` imports cv2 when called, and the
-mask dilation is scipy's.
+mask dilation is scipy's. With a workspace, each update writes its state and
+errors as JSON and, with `render_viz`, the triptych of nav/viz.py (the
+observation, the keypoints and the render at the posterior pose) as
+estimator_data/viz_NNNN.png.
 """
 
 import json
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 from torch.func import hessian, jacfwd
 
-from nerfnav_tpu_torch.device import resolve_device, unported
+from nerfnav_tpu_torch.device import resolve_device
 from nerfnav_tpu_torch.nav.dynamics import DynamicsConfig, drone_dynamics
 from nerfnav_tpu_torch.nav.math_utils import calc_se3_err, nearest_pd
 from nerfnav_tpu_torch.nav.optim import adam_init, adam_update
@@ -103,11 +106,7 @@ class EstimatorConfig:
     measurement_weight: float = 1e3
     sig_max_eig: float = 1e3
     hess_reg: float = 1e-6
-    render_viz: bool = False
-
-    def __post_init__(self):
-        if self.render_viz:
-            raise unported("render_viz (the estimator triptych of nav/viz.py)", "A10")
+    render_viz: bool = False      # a triptych per update (nav/viz.py; matplotlib)
 
 
 class Estimator:
@@ -353,7 +352,7 @@ class Estimator:
             raise RuntimeError("call set_initial_state first")
         action = torch.as_tensor(np.asarray(action, np.float32), device=self.device)
         self.last_losses = None
-        _, _, rays_pool, gt_pixels, t_walls = self._front_end(obs_img)
+        img_f, poi, rays_pool, gt_pixels, t_walls = self._front_end(obs_img)
         if rays_pool is None:
             # no features: the prediction is the estimate
             x_pred, A = self._predict(self.xt, action)
@@ -402,6 +401,16 @@ class Estimator:
             rot_err, trans_err = (None, None)
             if obs_pose_gt is not None:
                 rot_err, trans_err = calc_se3_err(pose_est, np.asarray(obs_pose_gt))
+            if self.workspace and self.cfg.render_viz:
+                from nerfnav_tpu_torch.nav.viz import estimator_triptych
+
+                H, W = img_f.shape[:2]
+                estimator_triptych(
+                    img_f, self.render_from_pose(pose_est, H, W), poi,
+                    title=(f"Time step: {self.iteration}. Trans. error: {trans_err} m. "
+                           f"Rotate. error: {rot_err} deg."),
+                    path=os.path.join(self.workspace, "estimator_data",
+                                      f"viz_{self.iteration:04d}.png"))
             if self.workspace:
                 path = os.path.join(self.workspace, "estimator_data",
                                     f"step_{self.iteration:04d}.json")

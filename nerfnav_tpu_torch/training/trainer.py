@@ -17,7 +17,8 @@ phase A feeds every chunk), the one-shot grid render (`eval_rounds=False`)
 or the dense render, on any occupancy the marcher takes (block tables or
 byte bitfields); `evaluate` writes the validation images, `test` a camera
 path's frames, depth maps and video and `save_mesh` the density's
-iso-surface.
+iso-surface; `train_gui` and `test_gui` are the interactive viewer's hooks
+(gui/viewer.py).
 
 The step is two functions, `loss_and_grads` and `apply`, joined by
 `train_step`. JAX's PRNG streams do not match torch's, so every random draw
@@ -230,6 +231,7 @@ class Trainer:
         self._tile_layouts = {}        # (H, W, chunk) -> tile-major layout
         self._beam_dilate_cache = None
         self._beam_guard_cache = {}
+        self._gui_arrays = None        # (train_ds, its device arrays) of train_gui
         self.state = self._init_state(1, params, occupancy)
         self.writer = None  # reference trainer.py:302-309
         if opt.tensorboard and self._rank == 0:
@@ -927,13 +929,15 @@ class Trainer:
 
     def invalidate_render_cache(self):
         """Drop the render's plan and table caches (the ladder plan, the
-        eval table cast, the dilated coarse table, the beam guard): call
-        after changing the march config, the params' layout or the table
-        dtype under them (reference trainer.py:915-925)."""
+        eval table cast, the dilated coarse table, the beam guard) and the
+        training march configs derived from march_cfg: call after changing
+        the march config, the params' layout or the table dtype under them
+        (reference trainer.py:915-925)."""
         self._ladder_plan = None
         self._table_cast_cache = None
         self._beam_dilate_cache = None
         self._beam_guard_cache = {}
+        self._train_mcfgs = {}
 
     def evaluate(self, ds, name: str | None = None, use_ema: bool = True):
         """Mean PSNR of render_full over ds's frames (white background),
@@ -1010,6 +1014,58 @@ class Trainer:
         if img.dtype != np.uint8:
             img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
         write_image(path, img)
+
+    # ------------------------------------------------------------ GUI hooks
+    def train_gui(self, train_ds, step: int = 16):
+        """Run `step` train steps, each after the occupancy update when one
+        is due, on images drawn from numpy's default_rng(seed + global_step),
+        and report the mean loss and the wall time: the hook the interactive
+        viewer drives (reference trainer.py:1368-1391). The device arrays of
+        train_ds are built once per dataset."""
+        cached = self._gui_arrays
+        if cached is None or cached[0] is not train_ds:
+            cached = self._gui_arrays = (train_ds, self._device_arrays(train_ds))
+        arrays = cached[1]
+        H, W = train_ds.H, train_ds.W
+        if self._fresh:
+            # the reference's first call makes its state here, error maps
+            # sized to the dataset; like it, no checkpoint is resumed
+            if self.opt.error_map:
+                self.state.error_maps = torch.full((len(train_ds), EMAP_SIDE**2), 0.1,
+                                                   device=self.device)
+            self._fresh = False
+        rng = np.random.default_rng(self.opt.seed + self.global_step)
+        t0 = time.time()
+        total = torch.zeros((), device=self.device)
+        for _ in range(step):
+            self._maybe_update_occupancy()
+            idx = int(rng.integers(len(train_ds)))
+            total += self.train_step(self.state, arrays, self.draw_step(self.state, idx, H, W))
+        loss = float(total) / step  # waits for the last step
+        dt = time.time() - t0
+        return {"loss": loss, "time": dt, "steps_per_sec": step / max(dt, 1e-9)}
+
+    def test_gui(self, pose, intrinsics, W, H, bg_color=1.0, spp=1, downscale=1.0,
+                 crop_aabb=None, pixel_offset=None, frozen=False):
+        """One interactive frame of the EMA params, rendered at `downscale`
+        (at least 8 px a side) and resized to W x H with cv2's bilinear
+        filter on the host: {"image": (H, W, 3) numpy, "time": s of the
+        render and its copy to the host}. pixel_offset: an optional (dx, dy)
+        subpixel jitter, which the viewer varies per anti-aliasing pass.
+        `spp` and `frozen` have no effect (reference trainer.py:1393-1419)."""
+        rh, rw = max(int(H * downscale), 8), max(int(W * downscale), 8)
+        intr = np.asarray(intrinsics, np.float32) * downscale
+        t0 = time.time()
+        image, _ = self.render_full(self.state.ema_params, pose, intr, rh, rw, bg_color,
+                                    crop_aabb=crop_aabb, pixel_offset=pixel_offset,
+                                    frozen=frozen)
+        img = image.cpu().numpy()
+        dt = time.time() - t0
+        if (rh, rw) != (H, W):
+            import cv2
+
+            img = cv2.resize(img, (W, H), interpolation=cv2.INTER_LINEAR)
+        return {"image": img, "time": dt}
 
     def save_mesh(self, path: str | None = None, resolution: int = 256,
                   threshold: float = 10.0):

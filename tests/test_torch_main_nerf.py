@@ -98,14 +98,31 @@ def test_main_train_then_test(scene_dir, tmp_path, mode):
                                   ["--clip_weights", "w.pt", "--clip_text_embed", "t.npy"]],
                          ids=["gui", "rand_pose", "clip"])
 def test_main_unported_flags_raise(flag, scene_dir, tmp_path, monkeypatch):
-    """--gui still raises NotImplementedError naming ROADMAP A11. The CLIP
-    flags now run: --rand_pose 0 without a tower raises the Trainer's
-    RuntimeError, half of the --clip_weights / --clip_text_embed pair exits,
-    and with a tiny tower (.npz of seeded arrays) main trains its 100 steps,
-    poseless ones at --rand_pose 0, supervised ones with the tower loaded."""
+    """Flags that once raised as unported now run. --gui builds the viewer
+    on the Trainer and the train split and serves it on port 7860 (serve
+    stubbed), at the --W / --H / --radius / --fovy / --max_spp given and at
+    their defaults, without training first. The CLIP flags: --rand_pose 0
+    without a tower raises the Trainer's RuntimeError, half of the
+    --clip_weights / --clip_text_embed pair exits, and with a tiny tower
+    (.npz of seeded arrays) main trains its 100 steps, poseless ones at
+    --rand_pose 0, supervised ones with the tower loaded."""
     if flag == ["--gui"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            main_nerf.main(["scene", "--device", "cpu", *flag])
+        from nerfnav_tpu_torch.gui import NeRFGUI
+
+        served = []
+        monkeypatch.setattr(NeRFGUI, "serve", lambda self, host="127.0.0.1", port=7860,
+                            steps=None: served.append((self, host, port, steps)))
+        base = [scene_dir, *SMALL, "-O", "--ff", "--workspace", str(tmp_path / "ws"), *flag]
+        for extra, want in (([], (1920, 1080, 5.0, 50.0, 64)),
+                            (["--W", "64", "--H", "48", "--radius", "3", "--fovy", "40",
+                              "--max_spp", "8"], (64, 48, 3.0, 40.0, 8))):
+            tr = main_nerf.main(base + extra)
+            gui, host, port, steps = served[-1]
+            cam = gui.cam
+            assert (cam.W, cam.H, cam.radius, cam.fovy, gui.max_spp) == want
+            assert (host, port, steps) == ("127.0.0.1", 7860, None)
+            assert gui.trainer is tr and gui.training and gui.train_ds.split == "train"
+            assert tr.global_step == 0 and tr.device.type == "cpu"
         return
     from test_torch_clip import write_clip_npz
 

@@ -444,5 +444,5 @@ def test_fused_requires_static_horizon_and_gn():
     traj.cfg = dataclasses.replace(traj.cfg, static_horizon=False)
     with pytest.raises(ValueError):
         FusedMPC(filt, traj, H, W)
-    with pytest.raises(NotImplementedError, match="A10"):
-        test_.EstimatorConfig(render_viz=True)
+    # render_viz builds (it once raised as unported); test_torch_viz.py runs it
+    assert test_.EstimatorConfig(render_viz=True).render_viz

@@ -44,16 +44,22 @@ NAV_MODULES = ["nav/math_utils.py", "nav/dynamics.py", "nav/astar.py", "nav/plan
                "ops/marching.py", "models/renderer.py", "utils/mesh.py",
                "parallel/__init__.py", "parallel/sharding.py", "models/occupancy.py",
                "training/__init__.py", "training/clip_tower.py", "training/lpips_net.py",
-               "utils/profiling.py"]
+               "utils/profiling.py", "gui/__init__.py", "gui/viewer.py", "nav/viz.py",
+               "sim/__init__.py", "sim/blender_render.py", "sim/blender_trajectory_viz.py",
+               "scripts/colmap2nerf.py", "scripts/llff2nerf.py", "scripts/hyper2nerf.py",
+               "scripts/tanks2nerf.py"]
 # optional host libraries: imported by the functions that use them only
-LAZY = ("cv2", "scipy", "tensorboardX", "lpips")
+# (bpy and mathutils exist only inside Blender's Python)
+LAZY = ("cv2", "scipy", "tensorboardX", "lpips", "matplotlib", "bpy", "mathutils")
 
 
 @pytest.mark.parametrize("rel", NAV_MODULES)
 def test_nav_and_cli_modules_are_checked(rel):
-    """The nav stack, the dataset, the CLIs and the trainer are among the
-    checked files, and import cv2, scipy and tensorboardX only inside the
-    functions that use them: the card's machine may lack one."""
+    """The nav stack, the dataset, the CLIs, the trainer, the viewer, the
+    Blender scripts and the converters are among the checked files, and
+    import the optional host libraries only inside the functions that use
+    them: the card's machine may lack one (matplotlib), and bpy exists only
+    in Blender."""
     path = ROOT / "nerfnav_tpu_torch" / rel
     assert path in PORT_FILES
     tree = ast.parse(path.read_text(), str(path))
