@@ -19,6 +19,13 @@
    8 x N, the background net's at N = 4096 and the sigma net's at save_mesh's
    N = 2^16 (f32 weights, cast per call). With --kernels-only the
    script stops here, with no result line.
+   Then the cascade check (C2): at every float32 x in [1, 64] (the cascades
+   from dt of any bound up to 64; the port's configs use bound <= 2), the
+   march's cascade choice on this device against the CPU: the raw
+   ceil(log2(x)) and ops/marching.py::mip_level itself (pos 0, dt = x / 64
+   as a tensor). Prints each count and its first values, and where the
+   CPU's float32 log2 misses the exact exponent; any mip_level disagreement
+   fails the run.
 3. Slice phase: the -O --ff eval render, Trainer.render_full of one 800x800
    frame of the flagship field (cell hash grid 4x8 @ 2^17, fused MLPs,
    bound 2, K 32, bf16 tables, AUTO beam) over the synthetic shell + floor
@@ -212,7 +219,13 @@
    matplotlib is not on the card's machine: nav/viz.py and render_viz are
    held by CPU tests only (tests/test_torch_viz.py), as are the dataset
    converters and the Blender scripts, which have no card path.
-11. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+11. Quickstart phase: examples/quickstart_torch.py's main in this process at
+   its defaults (QS_ARGS: the five stages of examples/quickstart.py at its
+   widths and step counts, the -O --ff MLPs): the val PSNR must be finite,
+   the orbit render 2 frames, the planner's loss must fall, and the fused
+   kernel must launch in training and in the renders. Prints the seconds
+   and the fused launches of each stage.
+12. Prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -446,6 +459,54 @@ def time_shapes(n, gen, device, timer, names=ROUND_SHAPES, f32=False):
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
         out[name] = t
     return out
+
+
+# [1, 2^6]: the cascades from dt of every bound up to 64 (7 cascades); the
+# port's configs use bound <= 2 (2 cascades, [1, 2])
+C2_OCTAVES = 6
+C2_SHOW = 5
+
+
+def cascade_phase(device, octaves=C2_OCTAVES):
+    """C2: the cascade the march picks from dt, this device against the CPU,
+    at every float32 x = dt * grid_size * 0.5 in [1, 2^octaves]: the raw
+    `ceil(log2(x))`, and `ops/marching.py::mip_level` itself (pos at 0, dt
+    a tensor), which must agree everywhere. Also counts where the CPU's
+    float32 `log2` loses the exact answer (the exponent, from frexp)."""
+    from nerfnav_tpu_torch.ops.marching import MarchConfig, mip_level
+
+    t0 = time.perf_counter()
+    cfg = MarchConfig(bound=2.0**octaves, grid_size=128)
+    check(cfg.cascades == octaves + 1, f"cascades {cfg.cascades}")
+    to_dt = 2.0 / cfg.grid_size  # a power of two: dt * grid_size * 0.5 is x again
+    lo = int(np.float32(1.0).view(np.int32))
+    hi = int(np.float32(2.0**octaves).view(np.int32))
+    diff = {"log2": [], "mip_level": [], "cpu_vs_exact": []}
+    n = 0
+    for start in range(lo, hi + 1, 2**23):
+        x = torch.arange(start, min(start + 2**23, hi + 1), dtype=torch.int32).view(torch.float32)
+        xd = x.to(device)
+        n += x.numel()
+        m, e = torch.frexp(x)
+        exact = (e - (m == 0.5).int()).long()
+        raw = torch.ceil(torch.log2(x)).long()
+        pos = torch.zeros((x.numel(), 3))
+        got = {"log2": torch.ceil(torch.log2(xd)).long().cpu(),
+               "mip_level": mip_level(pos.to(device), xd * to_dt, cfg).cpu()}
+        want = {"log2": raw, "mip_level": mip_level(pos, x * to_dt, cfg)}
+        for k in got:
+            diff[k].append(x[got[k] != want[k]])
+        diff["cpu_vs_exact"].append(x[raw != exact])
+    diff = {k: torch.cat(v) for k, v in diff.items()}
+    for k, v in diff.items():
+        log(f"C2 {k}: {v.numel()} of {n} float32 in [1, {2**octaves}] disagree"
+            f"{' (this device vs CPU)' if k != 'cpu_vs_exact' else ''}; first "
+            f"{[float(f) for f in v[:C2_SHOW]]}")
+    log(f"C2 phase: {time.perf_counter() - t0:.1f} s")
+    check(diff["mip_level"].numel() == 0,
+          f"mip_level picks another cascade on {device} than on the CPU at "
+          f"{diff['mip_level'].numel()} values")
+    return {k: v.numel() for k, v in diff.items()}
 
 
 def shell_occupancy(bound, grid_size, coarse_factor, device):
@@ -3337,6 +3398,48 @@ def viewer_phase(device, sizes, card):
             "viewer_crop_mean_abs": crop["mean_abs"]}
 
 
+QS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_quickstart")
+# the card runs examples/quickstart_torch.py at its defaults (300 steps at
+# 40x40, a 300-epoch plan), the rehearsal at the CPU test's sizes
+QS_ARGS = {"card": [], "rehearsal": ["--steps", "6", "--hw", "16", "--plan_epochs", "20"]}
+
+
+def quickstart_phase(device, sizes, card):
+    """examples/quickstart_torch.py's main, in this process, on this device:
+    the five stages must finish with a finite val PSNR, a planner loss that
+    fell and, on the card, the fused-MLP kernel launched in training and in
+    the renders. Returns the fields the kernels line carries."""
+    import importlib.util
+
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                         "examples", "quickstart_torch.py"))
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    shutil.rmtree(QS_DIR, ignore_errors=True)
+    fm.fused_mlp.launches = 0
+    t0 = time.perf_counter()
+    out = quickstart.main(["--device", str(device), *sizes["quickstart"], "--out", QS_DIR])
+    took = time.perf_counter() - t0
+    launches = fm.fused_mlp.launches
+    check(math.isfinite(out["psnr"]), f"quickstart val PSNR {out['psnr']}")
+    check(out["frames"] == 2, f"quickstart rendered {out['frames']} frames")
+    check(out["losses"][-1] < out["losses"][0],
+          f"the quickstart planner's loss did not fall: {out['losses'][0]} -> {out['losses'][-1]}")
+    if device.type == "cuda":
+        check(launches > 0 and out["launches"]["train"] > 0 and out["launches"]["render"] > 0,
+              f"the quickstart did not launch the fused-MLP kernel: {out['launches']}")
+    shutil.rmtree(QS_DIR, ignore_errors=True)
+    log(f"quickstart phase: {took:.1f} s ({card}), val PSNR {out['psnr']:.3f} dB, planner "
+        f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, clearance "
+        f"{out['clearance']:.3f}, fused launches {launches}; by stage",
+        json.dumps({"s": out["seconds"], "launches": out["launches"]}))
+    return {"quickstart_launches": launches, "quickstart_stage_launches": out["launches"],
+            "quickstart_stage_s": out["seconds"], "quickstart_psnr": out["psnr"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -3351,7 +3454,7 @@ def main():
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
                  "rays": 512, "nav": NAV_SIZES["rehearsal"], "ref": REF_SIZES["rehearsal"],
                  "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32, "mesh_res": 32,
-                 "clip": CLIP_WIDTHS["rehearsal"]}
+                 "clip": CLIP_WIDTHS["rehearsal"], "quickstart": QS_ARGS["rehearsal"]}
     else:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -3359,7 +3462,7 @@ def main():
         sizes = {"hw": 800, "grid": 128, "log2": 17, "frames": 3, "mlp_n": 32768,
                  "rays": 4096, "nav": NAV_SIZES["card"], "ref": REF_SIZES["card"],
                  "bg": BG_SIZES["card"], "dense_n": 4096 * 512, "mesh_res": 256,
-                 "clip": CLIP_WIDTHS["card"]}
+                 "clip": CLIP_WIDTHS["card"], "quickstart": QS_ARGS["card"]}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
@@ -3380,6 +3483,7 @@ def main():
     mlp = kernel_phase(device, sizes["mlp_n"], sizes["dense_n"], timer)
     if args.kernels_only:
         return
+    cascade = cascade_phase(device)
     launches = slice_phase(device, sizes, card)
     train_launches = training_phase(device, sizes, card)
     nav_launches = nav_phase(device, sizes, card)
@@ -3388,6 +3492,7 @@ def main():
     opt_out = options_phase(device, sizes, card)
     train_opt_out = train_options_phase(device, sizes, card)
     viewer_out = viewer_phase(device, sizes, card)
+    quickstart_out = quickstart_phase(device, sizes, card)
     entry = {"name": "fused_mlp", "route": "cuda",
              "source": "nerfnav_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "nerfnav_tpu/ops/fused_mlp.py:58",
@@ -3395,9 +3500,9 @@ def main():
              "ms": mlp["ms"], "plain_ms": mlp["plain_ms"],
              "bound_ms": mlp["bound_ms"], "bound_by": mlp["bound_by"],
              "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches,
-             "nav_launches": nav_launches, **ref_launches,
+             "nav_launches": nav_launches, "cascade_disagreements": cascade, **ref_launches,
              **{k: v for k, v in mlp.items() if k.startswith(("bg_", "mesh_"))},
-             **bg_launches, **opt_out, **train_opt_out, **viewer_out}
+             **bg_launches, **opt_out, **train_opt_out, **viewer_out, **quickstart_out}
     log(json.dumps({"kernels": [entry]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each `csrc/<name>.cu` exports a plain C interface. It is compiled at first
-use by `nvcc` for sm_90a into a shared library under `build/kernels/` at the
-repository root, keyed by a hash of the source and the flags, and loaded with
-ctypes. Nothing is built when a module is imported, and a missing `nvcc` or
+use by `nvcc` for sm_90a into a shared library under `build_dir("kernels")`,
+keyed by a hash of the source and the flags, and loaded with ctypes. Nothing
+is built when a module is imported, and a missing source, a missing `nvcc` or
 a failed build raises: there is no fallback for a CUDA tensor.
 """
 
@@ -16,7 +16,6 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,6 +39,22 @@ _SIGNATURES = {
 _loaded = {}
 
 
+def build_dir(kind: str) -> Path:
+    """The directory the port builds its `kind` libraries into ("kernels"
+    here, "native" for the A*).
+
+    From a source checkout (the package's parent holds pyproject.toml and
+    can be written): `build/<kind>` at the repository root, which .gitignore
+    lists. Otherwise, as for an installed package:
+    `$XDG_CACHE_HOME/nerfnav_tpu_torch/<kind>`, or under `~/.cache` when
+    XDG_CACHE_HOME is unset."""
+    root = _PKG.parent
+    if (root / "pyproject.toml").is_file() and os.access(root, os.W_OK):
+        return root / "build" / kind
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "nerfnav_tpu_torch" / kind
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -53,7 +68,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    return build_dir("kernels") / f"{name}-{key}.so"
 
 
 def _start_build(name: str):
@@ -61,7 +76,7 @@ def _start_build(name: str):
     target = library_path(name)
     if target.exists():
         return None, target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
            str(CSRC / f"{name}.cu")]

@@ -1,8 +1,9 @@
 """Host-side native code: grid A* (astar.cpp), built with g++ and loaded by ctypes.
 
-The library is compiled at first use into `build/native/` at the repository
-root, keyed by a hash of the source and the flags, never into the package.
-A missing compiler or a failed build raises; there is no Python fallback here
+The library is compiled at first use into `kernels.build_dir("native")`
+(`build/native/` in a source checkout, else the user's cache), keyed by a
+hash of the source and the flags, never into the package. A missing source,
+a missing compiler or a failed build raises; there is no Python fallback here
 (nav/astar.py keeps the Python search as the tests' golden).
 """
 
@@ -14,8 +15,9 @@ from pathlib import Path
 
 import numpy as np
 
+from nerfnav_tpu_torch.kernels import build_dir
+
 _DIR = Path(__file__).resolve().parent
-BUILD_DIR = _DIR.parent.parent / "build" / "native"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lib = None
 
@@ -23,7 +25,7 @@ _lib = None
 def library_path() -> Path:
     src = (_DIR / "astar.cpp").read_bytes()
     key = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"astar-{key}.so"
+    return build_dir("native") / f"astar-{key}.so"
 
 
 def _load():
@@ -32,7 +34,7 @@ def _load():
         return _lib
     target = library_path()
     if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        target.parent.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
         proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(_DIR / "astar.cpp")],
                               capture_output=True, text=True)

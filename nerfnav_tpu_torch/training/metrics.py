@@ -1,8 +1,8 @@
 """Evaluation metrics: PSNR, LPIPS, and the sRGB transfer curve.
 
 Counterpart of nerfnav_tpu/training/metrics.py (`PSNRMeter`, `LPIPSMeter`,
-`srgb_to_linear`). LPIPS needs pretrained weights, which the user supplies
-(training/lpips_net.py)."""
+`linear_to_srgb`, `srgb_to_linear`). LPIPS needs pretrained weights, which
+the user supplies (training/lpips_net.py)."""
 
 import numpy as np
 
@@ -107,6 +107,12 @@ class LPIPSMeter:
 
     def report(self):
         return f"LPIPS ({self.net}) = {self.measure():.6f}"
+
+
+def linear_to_srgb(x):
+    """Linear [0, 1] values to sRGB-encoded ones (reference utils.py:42-44)."""
+    x = np.clip(x, 0, 1)
+    return np.where(x <= 0.0031308, 12.92 * x, 1.055 * x ** (1 / 2.4) - 0.055)
 
 
 def srgb_to_linear(x):

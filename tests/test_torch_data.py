@@ -149,6 +149,28 @@ def test_colmap_layout(scenes, tmp_path, kw):
     assert dt.H == HW // kw.get("downscale", 1)
 
 
+@pytest.mark.parametrize("name", ["linear_to_srgb", "srgb_to_linear"])
+def test_srgb_curves_match_jax(name):
+    """Both sRGB transfer curves (the second is what --color_space linear
+    applies above) against the JAX package's within 1e-6: seeded values in
+    and out of [0, 1], 0, 1 and both knees with their float32 neighbours."""
+    from nerfnav_tpu.training import metrics as jmetrics
+    from nerfnav_tpu_torch.training import metrics as tmetrics
+
+    knees = np.float32([0.0031308, 0.04045])
+    edges = np.concatenate([[0.0, 1.0, -0.25, 1.5], knees,
+                            np.nextafter(knees, np.float32(0)),
+                            np.nextafter(knees, np.float32(1))]).astype(np.float32)
+    x = np.concatenate([edges, np.random.default_rng(11).uniform(
+        -0.5, 1.5, 1000).astype(np.float32)])
+    got = getattr(tmetrics, name)(x)
+    want = getattr(jmetrics, name)(x)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # 0 and 1 are fixed points; values out of range clip to them
+    np.testing.assert_allclose(got[:4], [0.0, 1.0, 0.0, 1.0], rtol=0, atol=1e-6)
+
+
 def test_interpolate_test_path_and_dataloader(scenes):
     """_interpolate_test_path on the same frames (seeded draw, Slerp) within
     1e-6, and the dataloader's index sequence and poses, exactly."""

@@ -10,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "nerfnav_tpu")
-PORT_FILES = sorted((ROOT / "nerfnav_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "nerfnav_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_modules(tree):
