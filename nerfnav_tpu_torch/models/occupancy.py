@@ -25,6 +25,7 @@ from nerfnav_tpu_torch.device import resolve_device
 from nerfnav_tpu_torch.models import network as net
 from nerfnav_tpu_torch.ops.morton import pack_blocks, packbits, unpackbits
 from nerfnav_tpu_torch.parallel import gather_rays, mesh_size, shard_rays
+from nerfnav_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -139,8 +140,9 @@ def _query_cells(params, net_cfg, cfg: OccupancyConfig, cell_idx, cas: int, jitt
     half_cell = cas_bound / cfg.grid_size
     pts = centers * (cas_bound - half_cell) + (jitter * 2.0 - 1.0) * half_cell
     c = cfg.update_chunk
-    return torch.cat([net.density(params, pts[i : i + c], net_cfg)["sigma"]
-                      for i in range(0, pts.shape[0], c)])
+    with span("occupancy.query"):
+        return torch.cat([net.density(params, pts[i : i + c], net_cfg)["sigma"]
+                          for i in range(0, pts.shape[0], c)])
 
 
 def _update_full(state, cfg: OccupancyConfig, params, net_cfg, draws, thresh_cap=None,
@@ -185,55 +187,56 @@ def _finish_update(state, cfg: OccupancyConfig, grid, tmp, thresh_cap=None):
     With occ_debounce an inactive cell turns on only if this sweep and the
     previous observed one both queried it above the bar; "pending" holds the
     cells seen above it once, and an unsampled cell keeps its mark."""
-    valid = (grid >= 0) & (tmp >= 0) if cfg.ema_sampled_only else grid >= 0
-    tmp_stored = tmp
-    if cfg.density_write_clamp > 0.0:
-        tmp_stored = torch.clamp(tmp, max=cfg.density_write_clamp * cfg.density_thresh)
-    if cfg.ema_toward_query:
-        cand = cfg.decay * grid + (1.0 - cfg.decay) * tmp_stored
-        new_grid = torch.where(valid & (tmp >= 0), cand,
-                               torch.where(valid, grid * cfg.decay, grid))
-    else:
-        new_grid = torch.where(valid, torch.maximum(grid * cfg.decay, tmp_stored), grid)
-    raw = new_grid
-    if cfg.density_write_clamp > 0.0:
-        # the bar statistic follows the raw (unclamped) sweep values
-        raw = torch.where(valid, torch.maximum(grid * cfg.decay, tmp), grid)
-    mean_density = torch.clamp(raw, min=0.0).mean()
-    thresh = torch.clamp(mean_density, max=cfg.density_thresh)
-    if thresh_cap is not None:
-        thresh = torch.minimum(thresh, torch.as_tensor(thresh_cap, device=grid.device))
-    occ = new_grid > thresh
-    new_pending = None
-    if cfg.occ_debounce:
-        prev = unpackbits(state["bitfield"]).reshape(occ.shape)
-        sampled = tmp >= 0
-        tmp_high = sampled & (tmp > thresh)
-        pending = state["pending"]
-        occ = occ & (prev | (tmp_high & pending))
-        new_pending = torch.where(sampled, tmp_high & ~occ, pending & ~occ)
-    if cfg.occ_hysteresis > 0.0:
-        prev = unpackbits(state["bitfield"]).reshape(occ.shape)
-        occ = occ | (prev & (new_grid > cfg.occ_hysteresis * thresh))
-    h, f, c = cfg.grid_size, cfg.coarse_factor, cfg.cascades
-    hc = h // f
-    occ_coarse = occ.reshape(c, hc, f, hc, f, hc, f).to(torch.uint8).amax(
-        dim=(2, 4, 6)).reshape(c, hc**3) > 0
-    out = {
-        "density_grid": new_grid,
-        "bitfield": packbits(occ),
-        "bitfield_coarse": packbits(occ_coarse),
-        "mean_density": mean_density,
-        "iter_density": state["iter_density"] + 1,
-    }
-    if new_pending is not None:
-        out["pending"] = new_pending
-    if _blocks_supported(cfg):
-        out["blocks"] = pack_blocks(occ, h)
-        out["blocks_coarse"] = pack_blocks(occ_coarse, hc, block=8 if hc % 8 == 0 else 4)
-    out["density_coarse_min"] = torch.clamp(new_grid, min=0.0).reshape(
-        c, hc, f, hc, f, hc, f).amin(dim=(2, 4, 6)).reshape(c, hc**3)
-    return out
+    with span("occupancy.finish"):
+        valid = (grid >= 0) & (tmp >= 0) if cfg.ema_sampled_only else grid >= 0
+        tmp_stored = tmp
+        if cfg.density_write_clamp > 0.0:
+            tmp_stored = torch.clamp(tmp, max=cfg.density_write_clamp * cfg.density_thresh)
+        if cfg.ema_toward_query:
+            cand = cfg.decay * grid + (1.0 - cfg.decay) * tmp_stored
+            new_grid = torch.where(valid & (tmp >= 0), cand,
+                                   torch.where(valid, grid * cfg.decay, grid))
+        else:
+            new_grid = torch.where(valid, torch.maximum(grid * cfg.decay, tmp_stored), grid)
+        raw = new_grid
+        if cfg.density_write_clamp > 0.0:
+            # the bar statistic follows the raw (unclamped) sweep values
+            raw = torch.where(valid, torch.maximum(grid * cfg.decay, tmp), grid)
+        mean_density = torch.clamp(raw, min=0.0).mean()
+        thresh = torch.clamp(mean_density, max=cfg.density_thresh)
+        if thresh_cap is not None:
+            thresh = torch.minimum(thresh, torch.as_tensor(thresh_cap, device=grid.device))
+        occ = new_grid > thresh
+        new_pending = None
+        if cfg.occ_debounce:
+            prev = unpackbits(state["bitfield"]).reshape(occ.shape)
+            sampled = tmp >= 0
+            tmp_high = sampled & (tmp > thresh)
+            pending = state["pending"]
+            occ = occ & (prev | (tmp_high & pending))
+            new_pending = torch.where(sampled, tmp_high & ~occ, pending & ~occ)
+        if cfg.occ_hysteresis > 0.0:
+            prev = unpackbits(state["bitfield"]).reshape(occ.shape)
+            occ = occ | (prev & (new_grid > cfg.occ_hysteresis * thresh))
+        h, f, c = cfg.grid_size, cfg.coarse_factor, cfg.cascades
+        hc = h // f
+        occ_coarse = occ.reshape(c, hc, f, hc, f, hc, f).to(torch.uint8).amax(
+            dim=(2, 4, 6)).reshape(c, hc**3) > 0
+        out = {
+            "density_grid": new_grid,
+            "bitfield": packbits(occ),
+            "bitfield_coarse": packbits(occ_coarse),
+            "mean_density": mean_density,
+            "iter_density": state["iter_density"] + 1,
+        }
+        if new_pending is not None:
+            out["pending"] = new_pending
+        if _blocks_supported(cfg):
+            out["blocks"] = pack_blocks(occ, h)
+            out["blocks_coarse"] = pack_blocks(occ_coarse, hc, block=8 if hc % 8 == 0 else 4)
+        out["density_coarse_min"] = torch.clamp(new_grid, min=0.0).reshape(
+            c, hc, f, hc, f, hc, f).amin(dim=(2, 4, 6)).reshape(c, hc**3)
+        return out
 
 
 @torch.no_grad()

@@ -28,6 +28,7 @@ import torch
 from nerfnav_tpu_torch.device import device_const
 from nerfnav_tpu_torch.models import network as net
 from nerfnav_tpu_torch.ops.marching import _excl_trans
+from nerfnav_tpu_torch.utils.profiling import count, span
 
 
 class Field(NamedTuple):
@@ -234,34 +235,38 @@ def render_rays(field: Field, rcfg: RenderConfig, rays_o, rays_d, jitter=None, u
         sigma, geo = field.density_fn(xyz.reshape(-1, 3))
         return sigma.reshape(z.shape), geo.reshape(*z.shape, -1)
 
-    sigmas, geo_feats = eval_density(z_vals)
-    if rcfg.upsample_steps > 0:
-        # importance samples from the coarse weights, with no derivative in
-        # either mode through the proposal (detach, not no_grad, which
-        # leaves forward-mode tangents on)
-        zc, sc = z_vals.detach(), sigmas.detach()
-        deltas_c = torch.cat([torch.diff(zc, dim=-1), sample_dist.detach()[:, None]], dim=-1)
-        _, _, _, w_coarse = composite(sc, torch.zeros((*sc.shape, 3), device=sc.device),
-                                      deltas_c, zc, field.density_scale)
-        mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
-        bins = torch.cat([near[:, None], mids, far[:, None]], dim=-1).detach()
-        new_z = sample_pdf(bins, w_coarse, rcfg.upsample_steps, u).detach()
-        new_sigmas, new_geo = eval_density(new_z)
-        z_all = torch.cat([z_vals, new_z], dim=-1)
-        order = torch.argsort(z_all, dim=-1, stable=True)
-        z_vals = torch.gather(z_all, -1, order)
-        sigmas = torch.gather(torch.cat([sigmas, new_sigmas], dim=-1), -1, order)
-        geo_all = torch.cat([geo_feats, new_geo], dim=-2)
-        geo_feats = torch.gather(geo_all, -2, order[..., None].expand(*order.shape,
-                                                                      geo_all.shape[-1]))
-        t = t + rcfg.upsample_steps
+    with span("render.shade"):
+        sigmas, geo_feats = eval_density(z_vals)
+        if rcfg.upsample_steps > 0:
+            # importance samples from the coarse weights, with no derivative
+            # in either mode through the proposal (detach, not no_grad, which
+            # leaves forward-mode tangents on)
+            zc, sc = z_vals.detach(), sigmas.detach()
+            deltas_c = torch.cat([torch.diff(zc, dim=-1), sample_dist.detach()[:, None]],
+                                 dim=-1)
+            _, _, _, w_coarse = composite(sc, torch.zeros((*sc.shape, 3), device=sc.device),
+                                          deltas_c, zc, field.density_scale)
+            mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+            bins = torch.cat([near[:, None], mids, far[:, None]], dim=-1).detach()
+            new_z = sample_pdf(bins, w_coarse, rcfg.upsample_steps, u).detach()
+            new_sigmas, new_geo = eval_density(new_z)
+            z_all = torch.cat([z_vals, new_z], dim=-1)
+            order = torch.argsort(z_all, dim=-1, stable=True)
+            z_vals = torch.gather(z_all, -1, order)
+            sigmas = torch.gather(torch.cat([sigmas, new_sigmas], dim=-1), -1, order)
+            geo_all = torch.cat([geo_feats, new_geo], dim=-2)
+            geo_feats = torch.gather(geo_all, -2, order[..., None].expand(*order.shape,
+                                                                          geo_all.shape[-1]))
+            t = t + rcfg.upsample_steps
 
-    deltas = torch.cat([torch.diff(z_vals, dim=-1), sample_dist[:, None]], dim=-1)
-    dirs = _unit(rays_d)[:, None, :].expand(n, t, 3).reshape(-1, 3)
-    rgbs = field.color_fn(dirs, geo_feats.reshape(n * t, -1)).reshape(n, t, 3)
-    image, depth, weights_sum, _ = composite(sigmas, rgbs, deltas, z_vals, field.density_scale)
-    bg = _background(field, bg_color, rays_o, rays_d)
-    image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
+        deltas = torch.cat([torch.diff(z_vals, dim=-1), sample_dist[:, None]], dim=-1)
+        dirs = _unit(rays_d)[:, None, :].expand(n, t, 3).reshape(-1, 3)
+        rgbs = field.color_fn(dirs, geo_feats.reshape(n * t, -1)).reshape(n, t, 3)
+    with span("render.composite"):
+        image, depth, weights_sum, _ = composite(sigmas, rgbs, deltas, z_vals,
+                                                 field.density_scale)
+        bg = _background(field, bg_color, rays_o, rays_d)
+        image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
     return {"image": image, "depth": depth, "weights_sum": weights_sum}
 
 
@@ -314,20 +319,26 @@ def render_rays_grid(field: Field, occupancy, mcfg, rays_o, rays_d, key=None,
 
     n = rays_o.shape[0]
     # detached rays: no derivative of either mode enters the march
-    with torch.no_grad():
+    with span("render.march"), torch.no_grad():
         m = march(rays_o.detach(), rays_d.detach(), occupancy, mcfg, key=key,
                   crop_aabb=crop_aabb)
     z, dt, valid = m["z"], m["dt"], m["valid"]
     k = z.shape[1]
-    n_samples = valid.sum()
-    if sample_budget is not None and sample_budget < n * k:
-        sigmas, rgbs = _shade_packed(field, rays_o, rays_d, z, valid,
-                                     sample_budget, mcfg.bound, groups=sample_groups)
-    else:
-        sigmas, rgbs = _shade_dense(field, rays_o, rays_d, z, valid, mcfg.bound)
-    image, depth, weights_sum, _ = composite(sigmas, rgbs, dt, z, field.density_scale)
-    bg = _background(field, bg_color, rays_o, rays_d)
-    image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
+    with span("render.shade"):
+        n_samples = valid.sum()
+        count("valid_samples", n_samples)
+        if sample_budget is not None and sample_budget < n * k:
+            count("shaded_slots", sample_budget)
+            sigmas, rgbs = _shade_packed(field, rays_o, rays_d, z, valid,
+                                         sample_budget, mcfg.bound, groups=sample_groups)
+        else:
+            count("shaded_slots", n * k)
+            count("filled_slots", n_samples)
+            sigmas, rgbs = _shade_dense(field, rays_o, rays_d, z, valid, mcfg.bound)
+    with span("render.composite"):
+        image, depth, weights_sum, _ = composite(sigmas, rgbs, dt, z, field.density_scale)
+        bg = _background(field, bg_color, rays_o, rays_d)
+        image = _clip(image + (1.0 - weights_sum)[:, None] * bg, 0.0, 1.0)
     return {"image": image, "depth": depth, "weights_sum": weights_sum,
             "n_samples": n_samples}
 
@@ -392,6 +403,7 @@ def _shade_packed(field: Field, rays_o, rays_d, z, valid, budget: int, bound: fl
         flat = (flat + block * (ng * k)).reshape(-1)
         r = (r + block * ng).reshape(-1)
         pvalid = pvalid.reshape(-1)
+    count("filled_slots", pvalid.sum)   # a kernel: made only while tracing
     zp = z.reshape(-1)[flat]
     pvalid_slot = valid.reshape(-1)[flat]
     hd = field.encode_dir_fn(_unit(rays_d))

@@ -79,6 +79,7 @@ from nerfnav_tpu_torch.parallel import (
 )
 from nerfnav_tpu_torch.training import checkpoint as ckpt_lib
 from nerfnav_tpu_torch.training.metrics import PSNRMeter
+from nerfnav_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -370,15 +371,16 @@ class Trainer:
 
     def draw_step(self, state: TrainState, idx: int, H: int, W: int) -> StepDraws:
         """The step's draws from the Trainer's generator."""
-        n = self.opt.num_rays
-        emap = None if state.error_maps is None else state.error_maps[idx]
-        if self.opt.bg_train == "random":
-            bg = torch.rand((n, 3), generator=self.gen, device=self.device)
-        else:
-            bg = torch.full((n, 3), 1.0 if self.opt.bg_train == "white" else 0.0,
-                            device=self.device)
-        rays = draw_rays(self.gen, n, H, W, emap, device=self.device)
-        return StepDraws(idx=idx, rays=rays, bg=bg, **self._render_draws(n))
+        with span("train.draw"):
+            n = self.opt.num_rays
+            emap = None if state.error_maps is None else state.error_maps[idx]
+            if self.opt.bg_train == "random":
+                bg = torch.rand((n, 3), generator=self.gen, device=self.device)
+            else:
+                bg = torch.full((n, 3), 1.0 if self.opt.bg_train == "white" else 0.0,
+                                device=self.device)
+            rays = draw_rays(self.gen, n, H, W, emap, device=self.device)
+            return StepDraws(idx=idx, rays=rays, bg=bg, **self._render_draws(n))
 
     def _render_draws(self, n: int) -> dict:
         """The render's draws for n rays: the march key on the grid path,
@@ -398,12 +400,13 @@ class Trainer:
         budget / world slots."""
         images = arrays["images"]
         H, W, C = images.shape[1:]
-        emap = None if state.error_maps is None else state.error_maps[draws.idx]
-        rays = get_rays(arrays["poses"][draws.idx], arrays["intrinsics"], H, W,
-                        draws.rays, emap)
-        gt = images[draws.idx].reshape(H * W, C)[rays["inds"]]
-        if C == 4:
-            gt = gt[:, :3] * gt[:, 3:] + draws.bg * (1.0 - gt[:, 3:])
+        with span("train.rays"):
+            emap = None if state.error_maps is None else state.error_maps[draws.idx]
+            rays = get_rays(arrays["poses"][draws.idx], arrays["intrinsics"], H, W,
+                            draws.rays, emap)
+            gt = images[draws.idx].reshape(H * W, C)[rays["inds"]]
+            if C == 4:
+                gt = gt[:, :3] * gt[:, 3:] + draws.bg * (1.0 - gt[:, 3:])
         ro, rd, bg = rays["rays_o"], rays["rays_d"], draws.bg
         key, jitter, u = draws.march, draws.jitter, draws.u
         budget, groups = self._current_budget(), self._groups
@@ -421,7 +424,8 @@ class Trainer:
                     bg_color=bg, sample_budget=budget, sample_groups=groups)
             per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
             loss = per_ray.mean()
-            grads = list(torch.autograd.grad(loss, _leaves(state.params)))
+            with span("train.backward"):
+                grads = list(torch.autograd.grad(loss, _leaves(state.params)))
         loss, per_ray, n_samples = loss.detach(), per_ray.detach(), out.get("n_samples")
         if self.mesh is not None:
             grads = all_mean(grads, self.mesh)
@@ -456,23 +460,25 @@ class Trainer:
     def apply(self, state: TrainState, out: StepOut, idx: int, H: int, W: int):
         """Adam, the EMA of the params, the error-map and mean-count EMAs,
         and the step count, in place on `state`."""
-        self.apply_grads(state, out.grads)
-        if state.error_maps is not None:
-            j, i = out.inds // W, out.inds % W
-            coarse = (j * EMAP_SIDE // H) * EMAP_SIDE + (i * EMAP_SIDE // W)
-            row = state.error_maps[idx]
-            row[coarse] = 0.9 * row[coarse] + 0.1 * out.per_ray
-        if state.mean_count is not None and out.n_samples is not None:
-            ns = out.n_samples.float()
-            state.mean_count = torch.where(state.mean_count <= 0.0, ns,
-                                           0.9 * state.mean_count + 0.1 * ns)
+        with span("train.apply"):
+            self.apply_grads(state, out.grads)
+            if state.error_maps is not None:
+                j, i = out.inds // W, out.inds % W
+                coarse = (j * EMAP_SIDE // H) * EMAP_SIDE + (i * EMAP_SIDE // W)
+                row = state.error_maps[idx]
+                row[coarse] = 0.9 * row[coarse] + 0.1 * out.per_ray
+            if state.mean_count is not None and out.n_samples is not None:
+                ns = out.n_samples.float()
+                state.mean_count = torch.where(state.mean_count <= 0.0, ns,
+                                               0.9 * state.mean_count + 0.1 * ns)
 
     def train_step(self, state: TrainState, arrays, draws: StepDraws):
         """One step; returns its loss (a 0-d device tensor)."""
-        out = self.loss_and_grads(state, arrays, draws)
-        H, W = arrays["images"].shape[1:3]
-        self.apply(state, out, draws.idx, H, W)
-        return out.loss
+        with span("train.step"):
+            out = self.loss_and_grads(state, arrays, draws)
+            H, W = arrays["images"].shape[1:3]
+            self.apply(state, out, draws.idx, H, W)
+            return out.loss
 
     # ------------------------------------------------------ poseless step
     def clip_frame(self, H: int, W: int):
@@ -588,6 +594,12 @@ class Trainer:
         state = self.state
         if state.occupancy is None or self.global_step % self.opt.update_extra_interval:
             return
+        with span("train.sweep"):
+            self._sweep(state)
+
+    def _sweep(self, state):
+        """The due update: the host mirror of the mean count, then the
+        sweep unless frozen."""
         if state.mean_count is not None:
             self._mean_count_host = float(state.mean_count)
         freeze_at = self.opt.occ_freeze_after
