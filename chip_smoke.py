@@ -17,7 +17,16 @@
    summation order can move one by a bf16 step), then timed with CUDA events
    beside the plain version and a library call, at the main path's N and at
    8 x N, the background net's at N = 4096 and the sigma net's at save_mesh's
-   N = 2^16 (f32 weights, cast per call). With --kernels-only the
+   N = 2^16 (f32 weights, cast per call). Then the hash-grid encode
+   (csrc/hashgrid.cu) against the plain encode at the benchmark's grid
+   (16 x 2 at 2^19), forward and table gradient, at a dense step's N and
+   the grid budget's largest (196,608), the backward alone on a graph built
+   once, each timed beside the plain version by CUDA events and by the
+   device time of its kernels under the profiler, with its byte bound (the
+   log line also gives the time its corner rows would take from HBM). The
+   kernels line's hashgrid entry adds the kernel's launches on each main
+   path below (frame, train step, sweep, nav: 0, quickstart). With
+   --kernels-only the
    script stops here, with no result line.
    Then the cascade check (C2): at every float32 x in [1, 64] (the cascades
    from dt of any bound up to 64; the port's configs use bound <= 2), the
@@ -461,6 +470,128 @@ def time_shapes(n, gen, device, timer, names=ROUND_SHAPES, f32=False):
     return out
 
 
+# the benchmark's hash grid (16 levels x 2 features at 2^19 rows, 16 to 2048)
+ENCODE_GRID = dict(num_levels=16, level_dim=2, base_resolution=16, log2_hashmap_size=19,
+                   desired_resolution=2048)
+ENCODE_FWD_TOL = 1e-6   # tests/test_torch_hashgrid_kernel.py's, of the largest entry
+ENCODE_GRAD_TOL = 1e-5
+
+
+def encode_bound_ms(n, cfg):
+    """(least ms, sector ms) of one encode call, forward or table gradient,
+    at HBM bandwidth. Least: x and the features (or their gradient) once and
+    the f32 tables (or their gradient) once. Sector: x and the features, and
+    one 32-byte sector (or the row, if wider) per corner row gathered or
+    added to: the time if every corner row came from HBM and none from L2."""
+    corner_rows = n * cfg.num_levels * (1 if cfg.layout == "cell" else 2**cfg.input_dim)
+    io = n * (cfg.input_dim + cfg.output_dim) * 4
+    least = io + cfg.total_params * cfg.row_dim * 4
+    sector = io + corner_rows * max(32, cfg.row_dim * 4)
+    return least / H100_BYTES_PER_S * 1e3, sector / H100_BYTES_PER_S * 1e3
+
+
+def event_ms(fn, device, iters=10):
+    """ms per call of fn between CUDA events around `iters` calls after a
+    warm one: what a caller waits, host gaps included (the host clock on the
+    CPU)."""
+    fn()
+    if device.type != "cuda":
+        return timed_ms(fn, device, iters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def busy_ms(fn, device, iters=3):
+    """Device ms per call of fn: the summed durations of its kernels under
+    torch.profiler over `iters` calls after a warm one, without the host's
+    gaps between them (None on the CPU, or if the profiler saw no kernel)."""
+    if device.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+    return ns / 1e6 / iters if ns else None
+
+
+def encode_phase(device, n_dense, n_grid):
+    """The hash-grid kernels against the plain encode, forward and table
+    gradient, at the benchmark's grid and a dense step's N and the grid
+    budget's largest fraction. Each is timed beside the plain version by
+    CUDA events (`*_ms`) and by its kernels' device time (`*_busy_ms`); the
+    backward alone, on a graph built once. Returns the kernels-line entry
+    fields: what was measured, and the byte bound."""
+    from dataclasses import replace
+
+    from nerfnav_tpu_torch.ops import hashgrid as hg
+
+    cfg = hg.HashGridConfig(**ENCODE_GRID)
+    plain = replace(cfg, backend="xla")
+    gen = torch.Generator().manual_seed(2)
+    tables = [(torch.rand((s, cfg.row_dim), generator=gen) * 2e-4 - 1e-4).to(device)
+              for s in cfg.level_sizes]
+    per_call = 2 if device.type == "cuda" else 0
+    out = {}
+    for what, n in (("dense", n_dense), ("grid", n_grid)):
+        x = (torch.rand((n, 3), generator=gen) * 2 - 1).to(device)
+        g = torch.randn((n, cfg.output_dim), generator=gen).to(device)
+        ts = [t.clone().requires_grad_() for t in tables]
+        before = hg.hash_grid_encode.launches
+        got = hg.hash_grid_encode(ts, x, cfg)
+        dk = torch.autograd.grad(got, ts, g)
+        check(hg.hash_grid_encode.launches == before + per_call,
+              f"encode {what}: {hg.hash_grid_encode.launches - before} launches, "
+              f"{per_call} expected")
+        want = hg.hash_grid_encode(ts, x, plain)
+        dp = torch.autograd.grad(want, ts, g)
+        fwd_err = float((got - want).abs().max() / want.abs().max())
+        grad_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(dk, dp))
+        check(fwd_err <= ENCODE_FWD_TOL, f"encode {what}: forward {fwd_err:.3g} of the largest")
+        check(grad_err <= ENCODE_GRAD_TOL,
+              f"encode {what}: table gradient {grad_err:.3g} of the largest")
+        del got, want, dk, dp
+        t = {"n": n, "fwd_err": fwd_err, "grad_err": grad_err}
+        for name, c, iters in (("", cfg, 10), ("plain_", plain, 3)):
+            def fwd(c=c):
+                return hg.hash_grid_encode(tables, x, c)
+
+            t[f"{name}ms"] = event_ms(fwd, device, iters)
+            t[f"{name}busy_ms"] = busy_ms(fwd, device)
+            # the table gradient alone, through one graph kept for every call
+            y = hg.hash_grid_encode(ts, x, c)
+
+            def bwd(y=y):
+                return torch.autograd.grad(y, ts, g, retain_graph=True)
+
+            t[f"{name}bwd_ms"] = event_ms(bwd, device, iters)
+            t[f"{name}bwd_busy_ms"] = busy_ms(bwd, device)
+            del y, bwd
+        bound, sector = encode_bound_ms(n, cfg)
+        t["bound_ms"] = bound
+        out[what] = t
+        log(f"hash-grid encode at N = {n} ({what}): {json.dumps(t)}; all-from-HBM "
+            f"sector_ms {sector:.4f}, bound_ms / ms {bound / t['ms']:.3f}")
+    return out
+
+
+# the hash-grid kernel launches of each main path chip_smoke.py drives (the
+# hashgrid entry of the kernels line): filled by the phases
+GRID_LAUNCHES = {}
+
+
 # [1, 2^6]: the cascades from dt of every bound up to 64 (7 cascades); the
 # port's configs use bound <= 2 (2 cascades, [1, 2])
 C2_OCTAVES = 6
@@ -614,24 +745,29 @@ def slice_phase(device, sizes, card):
     """The main path (bench.py's on-axis frame), then the checks that need a
     silhouette on a side view. Returns the main path's fused launches."""
     from nerfnav_tpu_torch.ops import fused_mlp as fm
+    from nerfnav_tpu_torch.ops import hashgrid as hg
 
     hw = sizes["hw"]
     tr = make_trainer(device, sizes)
     pose = yaw_pose(0.0)
     intr = np.asarray([1000.0 * hw / 800, 1000.0 * hw / 800, hw / 2, hw / 2], np.float32)
 
-    fm.fused_mlp.launches = 0
+    fm.fused_mlp.launches = hg.hash_grid_encode.launches = 0
     t0 = time.perf_counter()
     image, depth = tr.render_full(tr.params, pose, intr, hw, hw)
     if device.type == "cuda":
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = fm.fused_mlp.launches
+    GRID_LAUNCHES["launches_per_frame"] = hg.hash_grid_encode.launches
     mean_image = check_frame(image, depth, hw)
     if device.type == "cuda":
         check(launches > 0, "the render never launched the fused-MLP kernel")
+        check(GRID_LAUNCHES["launches_per_frame"] > 0,
+              "the render never launched the hash-grid kernel")
     log(f"slice phase: {hw}x{hw} frame, mean_image {mean_image:.4f}, "
         f"first frame {first_s:.3f} s, fused_mlp launches {launches}, "
+        f"hash-grid launches {GRID_LAUNCHES['launches_per_frame']}, "
         f"planned ladder t_a0 {tr._ladder_plan[1]}")
 
     n_frames = sizes["frames"]
@@ -809,6 +945,7 @@ def training_phase(device, sizes, card):
     """The -O --ff training path on the card (see the module docstring).
     Returns the fused launches per train step."""
     from nerfnav_tpu_torch.ops import fused_mlp as fm
+    from nerfnav_tpu_torch.ops import hashgrid as hg
     from nerfnav_tpu_torch.ops.morton import unpackbits
     from nerfnav_tpu_torch.training import checkpoint as ckpt_lib
 
@@ -818,15 +955,18 @@ def training_phase(device, sizes, card):
     ds = target_frames(sizes["hw"])
     tr = train_trainer(device, sizes, workspace)
 
-    # count the fused launches of the sweeps and keep every step's loss
-    sweep = {"launches": 0, "count": 0}
+    # count the fused and hash-grid launches of the sweeps and keep every
+    # step's loss
+    sweep = {"launches": 0, "grid_launches": 0, "count": 0}
     losses = []
     update, step = tr._maybe_update_occupancy, tr.train_step
 
     def counted_update():
         before, iters = fm.fused_mlp.launches, int(tr.occupancy["iter_density"])
+        grid_before = hg.hash_grid_encode.launches
         update()
         sweep["launches"] += fm.fused_mlp.launches - before
+        sweep["grid_launches"] += hg.hash_grid_encode.launches - grid_before
         sweep["count"] += int(tr.occupancy["iter_density"]) - iters
 
     def kept_step(*a):
@@ -835,21 +975,25 @@ def training_phase(device, sizes, card):
         return loss
 
     tr._maybe_update_occupancy, tr.train_step = counted_update, kept_step
-    fm.fused_mlp.launches = 0
+    fm.fused_mlp.launches = hg.hash_grid_encode.launches = 0
     t0 = time.perf_counter()
     tr.train(ds, max_epochs=1, steps_per_epoch=TRAIN_STEPS)
     sync(device)
     train_s = time.perf_counter() - t0
     total = fm.fused_mlp.launches
+    grid_steps = hg.hash_grid_encode.launches - sweep["grid_launches"]
     del tr._maybe_update_occupancy, tr.train_step
     losses = torch.stack(losses).cpu()
     step_launches = total - sweep["launches"]
+    GRID_LAUNCHES["launches_per_train_step"] = grid_steps / TRAIN_STEPS
+    GRID_LAUNCHES["launches_per_sweep"] = sweep["grid_launches"] / max(sweep["count"], 1)
     occ_share = float(unpackbits(tr.occupancy["bitfield"]).float().mean())
     log("training:", json.dumps({
         "steps": len(losses), "first_run_s": train_s, "sweeps": sweep["count"],
         "loss_first8": float(losses[:8].mean()), "loss_last8": float(losses[-8:].mean()),
         "fused_launches_in_steps": step_launches,
-        "fused_launches_in_sweeps": sweep["launches"], "occupied_share": occ_share,
+        "fused_launches_in_sweeps": sweep["launches"], "grid_launches_in_steps": grid_steps,
+        "grid_launches_in_sweeps": sweep["grid_launches"], "occupied_share": occ_share,
         "occupancy_sha1": hashlib.sha1(tr.occupancy["bitfield"].cpu().numpy().tobytes())
         .hexdigest()[:12],
         "mean_count": float(tr.state.mean_count), "budget": tr._current_budget()}))
@@ -860,6 +1004,9 @@ def training_phase(device, sizes, card):
     if device.type == "cuda":
         check(step_launches > 0, "the train steps never launched the fused-MLP kernel")
         check(sweep["launches"] > 0, "the occupancy sweeps never launched the fused-MLP kernel")
+        check(grid_steps > 0 and sweep["grid_launches"] > 0,
+              f"the train steps or sweeps never launched the hash-grid kernel: {grid_steps} in "
+              f"the steps, {sweep['grid_launches']} in the sweeps")
     check(0.0 < occ_share < 1.0, f"occupied share {occ_share} outside (0, 1)")
     intr64 = crop_intrinsics(ds)
     crop, _ = tr.render_full(tr.state.ema_params, ds.poses[0], intr64, 64, 64)
@@ -1509,8 +1656,11 @@ def nav_card_vs_cpu(device):
     x0[0:3], x0[6:9] = [0.0, -1.6, 0.0], [0.0, 0.0, np.pi / 2]
     obs = Agent(x0, AgentConfig(H=hw, W=hw, focal=float(hw)), field=textured_sphere_field(),
                 device=cpu).get_img(body_state_to_camera_pose(torch.as_tensor(x0)).numpy())
+    # the plain encode, as nav's configs take it: the filter's jacfwd needs
+    # forward mode, which the hash-grid kernel lacks
     cfg = NetworkConfig(bound=1.0, grid_levels=2, grid_level_dim=8, grid_log2_hashmap_size=10,
-                        grid_max_resolution=32, grid_layout="cell", density_scale=10.0)
+                        grid_max_resolution=32, grid_layout="cell", density_scale=10.0,
+                        grid_backend="xla")
     params = init_network(torch.Generator().manual_seed(5), cfg, device=cpu)
     rcfg = RenderConfig(num_steps=32, upsample_steps=0, min_near=0.05)
     ecfg = EstimatorConfig(gn_iters=4, gn_jac_batch=32, batch_size=64, pool_size=256)
@@ -1614,18 +1764,23 @@ def nav_blender(device, nav):
 
 def nav_phase(device, sizes, card):
     """Both parts of the nav phase; returns the fused-MLP launches in it
-    (nav forces the xla MLP, so 0)."""
+    (nav forces the xla MLP and the plain encode, so 0)."""
     from nerfnav_tpu_torch.ops import fused_mlp as fm
+    from nerfnav_tpu_torch.ops import hashgrid as hg
 
     nav = sizes["nav"]
     nav_front_end()
-    fm.fused_mlp.launches = 0
+    fm.fused_mlp.launches = hg.hash_grid_encode.launches = 0
     nav_mission(device, nav, card)
     nav_blender(device, nav)
     nav_network(device, sizes, nav, card)
     launches = fm.fused_mlp.launches
-    log(f"nav phase: fused_mlp launches {launches} (nav runs the xla MLP chain)")
+    GRID_LAUNCHES["nav_launches"] = hg.hash_grid_encode.launches
+    log(f"nav phase: fused_mlp launches {launches}, hash-grid launches "
+        f"{GRID_LAUNCHES['nav_launches']} (nav runs the xla MLP chain and the plain encode)")
     check(launches == 0, f"the nav path launched the fused MLP {launches} times")
+    check(GRID_LAUNCHES["nav_launches"] == 0,
+          f"the nav path launched the hash-grid kernel {GRID_LAUNCHES['nav_launches']} times")
     shutil.rmtree(NAV_WS, ignore_errors=True)
     return launches
 
@@ -3412,6 +3567,7 @@ def quickstart_phase(device, sizes, card):
     import importlib.util
 
     from nerfnav_tpu_torch.ops import fused_mlp as fm
+    from nerfnav_tpu_torch.ops import hashgrid as hg
 
     spec = importlib.util.spec_from_file_location(
         "quickstart_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -3419,11 +3575,12 @@ def quickstart_phase(device, sizes, card):
     quickstart = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(quickstart)
     shutil.rmtree(QS_DIR, ignore_errors=True)
-    fm.fused_mlp.launches = 0
+    fm.fused_mlp.launches = hg.hash_grid_encode.launches = 0
     t0 = time.perf_counter()
     out = quickstart.main(["--device", str(device), *sizes["quickstart"], "--out", QS_DIR])
     took = time.perf_counter() - t0
     launches = fm.fused_mlp.launches
+    GRID_LAUNCHES["quickstart_launches"] = hg.hash_grid_encode.launches
     check(math.isfinite(out["psnr"]), f"quickstart val PSNR {out['psnr']}")
     check(out["frames"] == 2, f"quickstart rendered {out['frames']} frames")
     check(out["losses"][-1] < out["losses"][0],
@@ -3431,10 +3588,13 @@ def quickstart_phase(device, sizes, card):
     if device.type == "cuda":
         check(launches > 0 and out["launches"]["train"] > 0 and out["launches"]["render"] > 0,
               f"the quickstart did not launch the fused-MLP kernel: {out['launches']}")
+        check(GRID_LAUNCHES["quickstart_launches"] > 0,
+              "the quickstart never launched the hash-grid kernel")
     shutil.rmtree(QS_DIR, ignore_errors=True)
     log(f"quickstart phase: {took:.1f} s ({card}), val PSNR {out['psnr']:.3f} dB, planner "
         f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, clearance "
-        f"{out['clearance']:.3f}, fused launches {launches}; by stage",
+        f"{out['clearance']:.3f}, fused launches {launches}, hash-grid launches "
+        f"{GRID_LAUNCHES['quickstart_launches']}; by stage",
         json.dumps({"s": out["seconds"], "launches": out["launches"]}))
     return {"quickstart_launches": launches, "quickstart_stage_launches": out["launches"],
             "quickstart_stage_s": out["seconds"], "quickstart_psnr": out["psnr"]}
@@ -3453,7 +3613,8 @@ def main():
         device = torch.device("cpu")
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
                  "rays": 512, "nav": NAV_SIZES["rehearsal"], "ref": REF_SIZES["rehearsal"],
-                 "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32, "mesh_res": 32,
+                 "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32, "grid_n": 1536,
+                 "mesh_res": 32,
                  "clip": CLIP_WIDTHS["rehearsal"], "quickstart": QS_ARGS["rehearsal"]}
     else:
         if not torch.cuda.is_available():
@@ -3461,7 +3622,9 @@ def main():
         device = torch.device("cuda")
         sizes = {"hw": 800, "grid": 128, "log2": 17, "frames": 3, "mlp_n": 32768,
                  "rays": 4096, "nav": NAV_SIZES["card"], "ref": REF_SIZES["card"],
-                 "bg": BG_SIZES["card"], "dense_n": 4096 * 512, "mesh_res": 256,
+                 "bg": BG_SIZES["card"], "dense_n": 4096 * 512,
+                 # the grid path's largest point budget, 0.75 x 4096 rays x 64
+                 "grid_n": 196608, "mesh_res": 256,
                  "clip": CLIP_WIDTHS["card"], "quickstart": QS_ARGS["card"]}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3481,6 +3644,7 @@ def main():
             log(f"built {name} ({time.perf_counter() - t0:.1f} s):\n{out.strip()}")
     timer = Timer(device)
     mlp = kernel_phase(device, sizes["mlp_n"], sizes["dense_n"], timer)
+    encode = encode_phase(device, sizes["dense_n"], sizes["grid_n"])
     if args.kernels_only:
         return
     cascade = cascade_phase(device)
@@ -3503,7 +3667,11 @@ def main():
              "nav_launches": nav_launches, "cascade_disagreements": cascade, **ref_launches,
              **{k: v for k, v in mlp.items() if k.startswith(("bg_", "mesh_"))},
              **bg_launches, **opt_out, **train_opt_out, **viewer_out, **quickstart_out}
-    log(json.dumps({"kernels": [entry]}))
+    hashgrid = {"name": "hashgrid", "route": "cuda",
+                "source": "nerfnav_tpu_torch/csrc/hashgrid.cu", "replaces": None,
+                **{f"{what}_{k}": v for what, t in encode.items() for k, v in t.items()},
+                **GRID_LAUNCHES}
+    log(json.dumps({"kernels": [entry, hashgrid]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -161,6 +161,9 @@ def make_configs(opt, for_nav: bool = False):
         grid_max_resolution=opt.grid_max_resolution,
         grid_coord_convention=opt.grid_coord_convention,
         grid_backward="xla" if for_nav else opt.grid_backward,
+        # nav differentiates the encode in forward mode (jacfwd), and the
+        # hash-grid kernel is reverse-mode only
+        grid_backend="xla" if for_nav else "fused",
     )
     rcfg = RenderConfig(num_steps=opt.num_steps, upsample_steps=opt.upsample_steps,
                         min_near=opt.min_near, max_ray_batch=opt.max_ray_batch)

@@ -34,6 +34,62 @@ _SIGNATURES = {
             ctypes.c_void_p,  # cudaStream_t
         ],
     },
+    "hashgrid": {
+        "nerfnav_hashgrid_forward": [
+            ctypes.c_void_p,  # x (N, D) float32
+            ctypes.c_void_p,  # out (N, L * F) float32
+            ctypes.c_int,     # N
+            ctypes.c_int,     # D
+            ctypes.c_int,     # F
+            ctypes.c_int,     # cell layout
+            ctypes.c_int,     # bf16 tables
+            ctypes.c_int,     # f32 tables rounded to bf16
+            ctypes.c_int,     # ngp convention
+            ctypes.c_float,   # bound
+            ctypes.c_int,     # L
+            ctypes.c_int,     # levels per block row
+            ctypes.c_void_p,  # host array of L table pointers
+            ctypes.c_void_p,  # host array of L float32 position scales
+            ctypes.c_void_p,  # host array of 5 L uint32 level parameters
+            ctypes.c_void_p,  # cudaStream_t
+        ],
+        "nerfnav_hashgrid_backward": [
+            ctypes.c_void_p,  # x (N, D) float32
+            ctypes.c_void_p,  # g (N, L * F) float32
+            ctypes.c_int,     # N
+            ctypes.c_int,     # D
+            ctypes.c_int,     # F
+            ctypes.c_int,     # cell layout
+            ctypes.c_int,     # ngp convention
+            ctypes.c_float,   # bound
+            ctypes.c_int,     # L
+            ctypes.c_int,     # levels per block row
+            ctypes.c_void_p,  # host array of L table-gradient pointers, float32
+            ctypes.c_void_p,  # host array of L float32 position scales
+            ctypes.c_void_p,  # host array of 5 L uint32 level parameters
+            ctypes.c_void_p,  # deterministic route: rows (L, N K) int64, else NULL
+            ctypes.c_void_p,  # deterministic route: values (L, N K, W) float32
+            ctypes.c_void_p,  # cudaStream_t
+        ],
+        "nerfnav_hashgrid_dx": [
+            ctypes.c_void_p,  # x (N, D) float32
+            ctypes.c_void_p,  # g (N, L * F) float32
+            ctypes.c_void_p,  # dx (N, D) float32
+            ctypes.c_int,     # N
+            ctypes.c_int,     # D
+            ctypes.c_int,     # F
+            ctypes.c_int,     # cell layout
+            ctypes.c_int,     # bf16 tables
+            ctypes.c_int,     # f32 tables rounded to bf16
+            ctypes.c_int,     # ngp convention
+            ctypes.c_float,   # bound
+            ctypes.c_int,     # L
+            ctypes.c_void_p,  # host array of L table pointers
+            ctypes.c_void_p,  # host array of L float32 position scales
+            ctypes.c_void_p,  # host array of 5 L uint32 level parameters
+            ctypes.c_void_p,  # cudaStream_t
+        ],
+    },
 }
 
 _loaded = {}

@@ -10,6 +10,10 @@ that gives the ray's background colour.
 
 mlp_backend "xla" is the plain torch matmul chain with the reference's
 per-layer casts; "fused" is the fused-MLP kernel (ops/fused_mlp.py).
+grid_backend "fused" (the default) is the hash-grid kernel (ops/hashgrid.py,
+csrc/hashgrid.cu) on a CUDA tensor, for the field's grid and the
+background's; "xla" is the plain eager encode, which nav's configs take
+(make_configs(for_nav=True)): nav differentiates the encode in forward mode.
 """
 
 from dataclasses import dataclass
@@ -52,6 +56,7 @@ class NetworkConfig:
     grid_max_resolution: int = 2048
     grid_layout: str = "corner"
     grid_backward: str = "xla"
+    grid_backend: str = "fused"    # "fused" | "xla"
     grid_coord_convention: str = "vertex"
     grid_table_dtype: str = "float32"
 
@@ -69,6 +74,7 @@ class NetworkConfig:
             backward=self.grid_backward,
             coord_convention=self.grid_coord_convention,
             table_compute_dtype=self.grid_table_dtype,
+            backend=self.grid_backend,
         )
 
     @cached_property
@@ -82,6 +88,7 @@ class NetworkConfig:
             log2_hashmap_size=19,
             desired_resolution=2048,
             coord_convention=self.grid_coord_convention,
+            backend=self.grid_backend,
         )
 
     @cached_property
@@ -116,6 +123,8 @@ def init_network(generator, cfg: NetworkConfig, device="cuda"):
     order encoder, sigma_net, color_net, bg_encoder, bg_net."""
     if cfg.mlp_backend not in ("xla", "fused"):
         raise ValueError(f"unknown mlp_backend {cfg.mlp_backend!r}")
+    if cfg.grid_backend not in ("xla", "fused"):
+        raise ValueError(f"unknown grid_backend {cfg.grid_backend!r}")
     dev = resolve_device(device)
     params = {}
     if cfg.encoding in ("hashgrid", "tiledgrid"):

@@ -110,7 +110,9 @@ def test_fused_mlp_backward_activations(act):
 def _grid_grads(case, backward, seed=0):
     kw = dict(num_levels=4, level_dim=2, base_resolution=4, log2_hashmap_size=10,
               desired_resolution=64, backward=backward, **case)
-    cj, ct = jhg.HashGridConfig(**kw), thg.HashGridConfig(**kw)
+    # the port's plain version, which alone trains a bf16-compute table (the
+    # kernel path's arguments are checked on the CPU too, and it refuses to)
+    cj, ct = jhg.HashGridConfig(**kw), thg.HashGridConfig(**kw, backend="xla")
     rng = np.random.default_rng(seed)
     tables = [rng.uniform(-1, 1, (s, cj.row_dim)).astype(np.float32)
               for s in cj.level_sizes]
