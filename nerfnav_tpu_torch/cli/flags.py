@@ -7,6 +7,11 @@ training fp16 MLPs plus the occupancy-grid path; for nav (for_nav=True) fp16
 MLPs on the differentiable path, because the pose filter differentiates
 through the renderer. Nav also forces the xla MLP chain and the xla
 hash-grid backward: the LM filter linearizes in forward mode.
+
+`--mipnerf` (the port's own flag) trains mip-NeRF instead of the
+Instant-NGP field: `make_configs` returns a `MipNerfConfig` at mipnerf's
+Blender recipe (its sampling, learning-rate schedule and Adam) and no
+occupancy grid; the grid, MLP-backend and sampling flags do not apply.
 """
 
 import argparse
@@ -14,7 +19,9 @@ import sys
 import warnings
 
 
-def build_parser(description: str) -> argparse.ArgumentParser:
+def build_parser(description: str, for_nav: bool = False) -> argparse.ArgumentParser:
+    """The shared flags; `--mipnerf` only where the parser trains (not
+    for_nav: nav runs on the Instant-NGP field)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("path", type=str, help="dataset root (transforms json)")
     p.add_argument("-O", action="store_true", help="recommended settings meta-flag")
@@ -67,6 +74,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--eval_proxy", action="store_true")
     p.add_argument("--eval_beam", type=int, default=0)
     p.add_argument("--ff", action="store_true", help="fused-MLP backend")
+    if not for_nav:
+        p.add_argument("--mipnerf", action="store_true",
+                       help="train mip-NeRF at its Blender recipe (2 x 128 cone samples, "
+                       "one 8x256 MLP) on the dense path, composited on white")
     p.add_argument("--tcnn", action="store_true",
                    help="reference-script compatibility flag: selects the fused-MLP "
                    "backend (tinycudann is not a dependency of this port)")
@@ -124,11 +135,16 @@ def _select_mlp_backend(opt, for_nav: bool) -> str:
 def make_configs(opt, for_nav: bool = False):
     """Expand flags (incl. -O) into (NetworkConfig, RenderConfig,
     OccupancyConfig or None, MarchConfig or None)."""
-    from nerfnav_tpu_torch.models.network import NetworkConfig
+    from nerfnav_tpu_torch.models.network import MipNerfConfig, NetworkConfig
     from nerfnav_tpu_torch.models.occupancy import OccupancyConfig
     from nerfnav_tpu_torch.models.renderer import RenderConfig
     from nerfnav_tpu_torch.ops.marching import MarchConfig
 
+    if getattr(opt, "mipnerf", False):
+        if for_nav or opt.O or opt.cuda_ray:
+            raise ValueError("--mipnerf trains on the dense path: no -O, --cuda_ray or nav")
+        return (MipNerfConfig(), RenderConfig(max_ray_batch=opt.max_ray_batch, upsample_steps=0),
+                None, None)
     if opt.O:
         opt.fp16 = True
         if for_nav:

@@ -5,6 +5,7 @@
     python -m nerfnav_tpu_torch.cli.main_nerf <scene> -O --ff           # the flagship grid
     python -m nerfnav_tpu_torch.cli.main_nerf <scene> ... --test        # eval + test path
     python -m nerfnav_tpu_torch.cli.main_nerf <scene> -O --ff --gui     # viewer on :7860
+    python -m nerfnav_tpu_torch.cli.main_nerf <scene> --mipnerf         # mip-NeRF on white
 
 Counterpart of nerfnav_tpu/cli/main_nerf.py, with the same flags (shared in
 cli/flags.py). Training runs max(iters // steps_per_epoch, 1) epochs of
@@ -50,6 +51,7 @@ def make_trainer(opt):
         lr_iters=opt.lr_iters, num_rays=opt.num_rays, use_checkpoint=opt.ckpt,
         seed=opt.seed, error_map=opt.error_map,
         update_extra_interval=opt.update_extra_interval, tensorboard=True,
+        bg_train="white" if opt.mipnerf else "random",
         eval_table_dtype=opt.eval_table_dtype, eval_scan=opt.eval_scan,
         eval_occ_ladder=opt.eval_occ_ladder, eval_frame_phase_a=opt.eval_frame_phase_a,
         stride_phase=opt.stride_phase, eval_coarse_segments=opt.eval_coarse_segments,

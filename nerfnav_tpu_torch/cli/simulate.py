@@ -62,7 +62,7 @@ def build_sim_parser():
     """The simulate entry's argparse."""
     from nerfnav_tpu_torch.cli.flags import build_parser
 
-    parser = build_parser("nerfnav_tpu_torch navigation simulation")
+    parser = build_parser("nerfnav_tpu_torch navigation simulation", for_nav=True)
     parser.add_argument("--sim_backend", type=str, default="nerf", choices=["nerf", "blender"])
     parser.add_argument("--blend_file", type=str, default="")
     parser.add_argument("--steps", type=int, default=20)

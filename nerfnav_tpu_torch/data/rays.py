@@ -6,9 +6,11 @@ rotated by pose[:3, :3]; origins are pose[:3, 3]. `get_rays` samples a
 training batch from explicit draws (`RayDraws`, made by `draw_rays` from a
 torch.Generator), so a test can inject the JAX package's draws.
 `get_rays_at` gives the rays of explicit flat pixel indices, the pose
-filter's per-iteration path.
+filter's per-iteration path. `cone_rays` gives mip-NeRF's rays: directions
+left at unit camera depth and each pixel's cone radius.
 """
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,10 +42,13 @@ def draw_rays(generator, n_rays: int, H: int, W: int, error_map=None,
                                                  device=error_map.device))
 
 
-def get_rays(pose, intrinsics, H: int, W: int, draws: RayDraws, error_map=None):
+def get_rays(pose, intrinsics, H: int, W: int, draws: RayDraws, error_map=None,
+             cone: bool = False):
     """World-space rays of a sampled pixel batch: {"rays_o", "rays_d" (n, 3),
     "inds" (n,) flat pixel indices}. With an error map the pixels come from
-    the draws' coarse bins plus jitter, else from its uniform indices."""
+    the draws' coarse bins plus jitter, else from its uniform indices. With
+    `cone`, mip-NeRF's rays (`cone_rays`: directions not normalised, and
+    "radii" (n, 1))."""
     if error_map is None:
         inds = draws.inds
     else:
@@ -52,8 +57,28 @@ def get_rays(pose, intrinsics, H: int, W: int, draws: RayDraws, error_map=None):
         fx = torch.clamp(((cx.float() + draws.jitter[:, 1]) / EMAP_SIDE * W).long(), 0, W - 1)
         inds = fy * W + fx
     j, i = inds // W, inds % W
+    if cone:
+        return {**cone_rays(pose, intrinsics, i.float(), j.float(), H), "inds": inds}
     rays = _to_world(_pixel_dirs(i.float(), j.float(), intrinsics), pose)
     return {**rays, "inds": inds}
+
+
+def cone_rays(pose, intrinsics, i, j, H: int):
+    """mip-NeRF's rays through pixels (i, j) (n,) float32 of an H-row frame
+    (google/mipnerf `datasets.py` `_generate_rays`): {"rays_o", "rays_d" (the
+    camera-frame direction at unit depth, rotated elementwise: t is depth
+    along the optical axis), "radii" (n, 1)}. A pixel's radius is 2 /
+    sqrt(12) times the distance between the directions of its row and the
+    next (of rows H - 3 and H - 2 for the last row, as mipnerf pads it)."""
+    def directions(rows):
+        d = _pixel_dirs(i, rows, intrinsics)
+        return (d[:, None, :] * pose[:3, :3]).sum(dim=-1)
+
+    rays_d = directions(j)
+    below = torch.where(j == H - 1, j - 2.0, j)
+    dx = torch.sqrt(((directions(below) - directions(below + 1.0)) ** 2).sum(dim=-1))
+    return {"rays_o": pose[:3, 3].expand(rays_d.shape), "rays_d": rays_d,
+            "radii": dx[:, None] * 2.0 / math.sqrt(12.0)}
 
 
 def get_rays_at(pose, intrinsics, W: int, inds):

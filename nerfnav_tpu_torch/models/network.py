@@ -8,6 +8,13 @@ frequency-encoded field), "sigma_net" and "color_net" are lists of bias-free
 hash grid over where a ray leaves the background sphere and "bg_net" the MLP
 that gives the ray's background colour.
 
+`MipNerfConfig` is the other kind of field, mip-NeRF's (Barron et al.
+2021, arXiv 2103.13415): no grid, an integrated positional encoding of cone
+frustums (ops/ipe.py) into one 8 x 256 ReLU MLP with biases and a skip,
+shared by a coarse and a fine level (models/renderer.py `render_rays_mip`).
+Its params are lists of [weight (in, out), bias] pairs: "trunk" (the 8
+layers), "sigma", "bottleneck", "view" and "rgb".
+
 mlp_backend "xla" is the plain torch matmul chain with the reference's
 per-layer casts; "fused" is the fused-MLP kernel (ops/fused_mlp.py).
 grid_backend "fused" (the default) is the hash-grid kernel (ops/hashgrid.py,
@@ -207,6 +214,188 @@ def background(params, sph, d, cfg: NetworkConfig):
     h = torch.cat([h_sph, _encode_dir(d, cfg)], dim=-1)
     return _mlp_apply(params["bg_net"], h, cfg.compute_dtype, torch.sigmoid,
                       backend=cfg.mlp_backend)
+
+
+@dataclass(frozen=True)
+class MipNerfConfig:
+    """mip-NeRF at google/mipnerf's defaults (`MipNerfModel`, `MLP` and the
+    Blender `Config`): the field, its two sampling levels and its training
+    recipe. The MLP is the torch matmul chain (bf16 operands, float32
+    products, sums, biases and activations)."""
+    min_deg_point: int = 0
+    max_deg_point: int = 16
+    deg_view: int = 4
+    net_depth: int = 8
+    net_width: int = 256
+    net_depth_condition: int = 1
+    net_width_condition: int = 128
+    skip_layer: int = 4
+    density_bias: float = -1.0
+    rgb_padding: float = 0.001
+    num_samples: int = 128
+    num_levels: int = 2
+    resample_padding: float = 0.01
+    near: float = 2.0
+    far: float = 6.0
+    coarse_loss_mult: float = 0.1
+    lr_init: float = 5e-4
+    lr_final: float = 5e-6
+    lr_delay_steps: int = 2500
+    lr_delay_mult: float = 0.01
+    max_steps: int = 1_000_000
+    adam_betas: tuple = (0.9, 0.999)
+    adam_eps: float = 1e-8
+    mlp_backend = "xla"     # the torch matmul chain, not a field: the only one
+
+    @property
+    def pos_dim(self) -> int:
+        return 6 * (self.max_deg_point - self.min_deg_point)
+
+    @property
+    def dir_dim(self) -> int:
+        return 3 + 6 * self.deg_view
+
+    def layer_dims(self) -> dict:
+        """(in, out) of every layer, by params key, in params order."""
+        w, dims, d_in = self.net_width, [], self.pos_dim
+        for i in range(self.net_depth):
+            dims.append((d_in, w))
+            d_in = w + self.pos_dim if i % self.skip_layer == 0 and i > 0 else w
+        if self.net_depth_condition != 1:
+            raise ValueError("the view branch is one layer in this port")
+        return {"trunk": dims, "sigma": [(d_in, 1)], "bottleneck": [(d_in, w)],
+                "view": [(w + self.dir_dim, self.net_width_condition)],
+                "rgb": [(self.net_width_condition, 3)]}
+
+    def lr(self, step: int) -> float:
+        """The learning rate at 1-based step `step`: log-linear from
+        lr_init to lr_final over max_steps, times a sine warm-up from
+        lr_delay_mult over lr_delay_steps (mipnerf `learning_rate_decay`)."""
+        delay = self.lr_delay_mult + (1.0 - self.lr_delay_mult) * math.sin(
+            0.5 * math.pi * min(max(step / self.lr_delay_steps, 0.0), 1.0))
+        t = min(max(step / self.max_steps, 0.0), 1.0)
+        return delay * math.exp(math.log(self.lr_init) * (1.0 - t) + math.log(self.lr_final) * t)
+
+
+def init_mipnerf(generator, cfg: MipNerfConfig, device="cuda"):
+    """mip-NeRF's params: Glorot-uniform weights U(-sqrt(6 / (in + out)),
+    ...) drawn from a CPU torch.Generator (or None) in params order, zero
+    biases."""
+    dev = resolve_device(device)
+    out = {}
+    for key, dims in cfg.layer_dims().items():
+        out[key] = []
+        for d_in, d_out in dims:
+            lim = math.sqrt(6.0 / (d_in + d_out))
+            w = torch.rand((d_in, d_out), generator=generator) * (2 * lim) - lim
+            out[key] += [w.to(dev), torch.zeros(d_out, device=dev)]
+    return out
+
+
+def _mm32(a, b, bias=None):
+    """a @ b (+ bias) of bf16 operands with float32 products, sums and
+    result: one bf16 pass at float32 accumulation, what a TPU's default
+    matmul precision gives mip-NeRF's JAX code. On the CPU the operands are
+    widened, which multiplies them exactly."""
+    if a.is_cuda:
+        if bias is None:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.addmm(bias, a, b, out_dtype=torch.float32)
+    out = a.float() @ b.float()
+    return out if bias is None else out + bias
+
+
+def _relu_bf16(y):
+    """bf16(relu(y)) of a float32 y: the next layer's operand (rounding and
+    relu commute)."""
+    return y.to(torch.bfloat16).relu_()
+
+
+class _MipMLP(torch.autograd.Function):
+    """mip-NeRF's MLP on M = N x T samples, with the backward written out so
+    that only the bf16 operands are kept and every gradient is a float32
+    product of bf16 operands, as in the forward. Inputs: the IPE features
+    (M, pos_dim) and the per-ray view encoding (N, dir_dim), neither
+    differentiated; then the weights and biases in params order. Returns
+    (raw rgb (M, 3), raw density (M, 1)), float32."""
+
+    @staticmethod
+    def forward(ctx, x, cond, skip, *params):
+        bf = torch.bfloat16
+        ws = [w.to(bf) for w in params[0::2]]
+        bs = params[1::2]
+        depth = len(ws) - 4
+        n, m = cond.shape[0], x.shape[0]
+        x0 = x.to(bf)
+        h = x0
+        ins = []
+        for i in range(depth):
+            ins.append(h)
+            h = _relu_bf16(_mm32(h, ws[i], bs[i]))
+            if i % skip == 0 and i > 0:
+                h = torch.cat([h, x0], dim=-1)
+        w_s, w_bn, w_v, w_r = ws[depth:]
+        b_s, b_bn, b_v, b_r = bs[depth:]
+        raw_density = _mm32(h, w_s, b_s)
+        bn = _mm32(h, w_bn, b_bn).to(bf)
+        # the view layer's input padded to a multiple of 8 columns with
+        # zeros (and its weight with zero rows): the same sums, aligned rows
+        pad = -(w_v.shape[0]) % 8
+        c = cond.to(bf)[:, None, :].expand(n, m // n, cond.shape[1])
+        v_in = torch.cat([bn.reshape(n, m // n, -1), c,
+                          torch.zeros((n, m // n, pad), dtype=bf, device=x.device)],
+                         dim=-1).reshape(m, -1)
+        w_vp = torch.cat([w_v, torch.zeros((pad, w_v.shape[1]), dtype=bf, device=x.device)])
+        v = _relu_bf16(_mm32(v_in, w_vp, b_v))
+        raw_rgb = _mm32(v, w_r, b_r)
+        ctx.skip, ctx.view_rows = skip, w_v.shape[0]
+        ctx.save_for_backward(*ins, h, v_in, v, *ws[:depth], w_s, w_bn, w_vp, w_r)
+        return raw_rgb, raw_density
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_density):
+        bf = torch.bfloat16
+        saved = ctx.saved_tensors
+        depth = (len(saved) - 7) // 2
+        ins, (h, v_in, v) = saved[:depth], saved[depth:depth + 3]
+        ws = saved[depth + 3:2 * depth + 3]
+        w_s, w_bn, w_vp, w_r = saved[2 * depth + 3:]
+        width = ws[0].shape[1]
+
+        def layer(inp, g):
+            """(bf16 g, weight gradient, bias gradient) of a layer from its
+            bf16 input and the float32 gradient g of its output."""
+            g16 = g.to(bf)
+            return g16, _mm32(inp.t(), g16), g.sum(dim=0)
+
+        gr, dw_r, db_r = layer(v, g_rgb)
+        gv, dw_v, db_v = layer(v_in, _mm32(gr, w_r.t()).masked_fill_(v <= 0, 0.0))
+        gbn, dw_bn, db_bn = layer(h, _mm32(gv, w_vp[:width].t()))
+        gd, dw_s, db_s = layer(h, g_density)
+        # the density head has one output: its input gradient is one
+        # product per entry, made elementwise
+        g = _mm32(gbn, w_bn.t()) + gd.float() * w_s.float().t()
+        trunk = []
+        for i in reversed(range(depth)):
+            if i % ctx.skip == 0 and i > 0:
+                g = g[:, :width]
+            out = h if i == depth - 1 else ins[i + 1]
+            g16, dw, db = layer(ins[i], g.masked_fill_(out[:, :width] <= 0, 0.0))
+            trunk = [dw, db] + trunk
+            if i > 0:
+                g = _mm32(g16, ws[i].t())
+        return (None, None, None, *trunk, dw_s, db_s, dw_bn, db_bn,
+                dw_v[:ctx.view_rows], db_v, dw_r, db_r)
+
+
+def mipnerf_mlp(params, x, dir_enc, cfg: MipNerfConfig):
+    """(raw rgb (N, T, 3), raw density (N, T)) of mip-NeRF's MLP at the IPE
+    features x (N, T, pos_dim) of N rays' samples and the rays' view
+    encodings dir_enc (N, dir_dim)."""
+    n, t = x.shape[:2]
+    flat = [p for k in ("trunk", "sigma", "bottleneck", "view", "rgb") for p in params[k]]
+    raw_rgb, raw_density = _MipMLP.apply(x.reshape(n * t, -1), dir_enc, cfg.skip_layer, *flat)
+    return raw_rgb.reshape(n, t, 3), raw_density.reshape(n, t)
 
 
 def param_groups(params):

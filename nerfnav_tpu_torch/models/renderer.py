@@ -4,7 +4,8 @@ Counterpart of nerfnav_tpu/models/renderer.py (`Field`, `make_field`,
 `aabb_of`, `near_far_from_aabb`, `sph_from_ray`, `sample_pdf`, `composite`,
 the dense `render_rays` and `render_image`, `render_rays_grid` with its
 dense and point-budget packed shades, `render_rays_frozen`,
-`render_rays_grid_rounds`). A field with a background network (bg_radius >
+`render_rays_grid_rounds`), and `render_rays_mip`, mip-NeRF's two-level
+render of cone frustums, which has no JAX twin. A field with a background network (bg_radius >
 0) colours each ray's remaining transmittance from where the ray leaves the
 background sphere, and every renderer then ignores bg_color.
 The reference wraps every round of the eval renderer in a `lax.cond`;
@@ -24,9 +25,11 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from nerfnav_tpu_torch.device import device_const
 from nerfnav_tpu_torch.models import network as net
+from nerfnav_tpu_torch.ops.ipe import cast_cones, integrated_pos_enc, pos_enc
 from nerfnav_tpu_torch.ops.marching import _excl_trans
 from nerfnav_tpu_torch.utils.profiling import count, span
 
@@ -513,3 +516,133 @@ def render_rays_grid_rounds(field: Field, occupancy, mcfg, rays_o, rays_d,
     bg = _background(field, bg_color, rays_o, rays_d)
     image = image + (1.0 - wsum)[:, None] * bg
     return {"image": image.clamp(0.0, 1.0), "depth": depth, "weights_sum": wsum}
+
+
+# ------------------------------------------------------------- mip-NeRF
+_F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+@lru_cache(maxsize=None)
+def _strata_values(num: int) -> tuple:
+    """i / num for i < num, each a float32 product as mipnerf makes it."""
+    return tuple((torch.arange(num, dtype=torch.float32) * (1.0 / num)).tolist())
+
+
+def sorted_piecewise_constant_pdf(bins, weights, num_samples: int, u=None):
+    """mipnerf's `math.sorted_piecewise_constant_pdf`: num_samples sorted
+    depths drawn from the piecewise-constant density of `weights` (N, T)
+    over `bins` (N, T+1), stratified (u (N, num_samples) uniform draws in
+    [0, 1), each moved inside its stratum of width 1 / num_samples) or at
+    the evenly spaced levels [0, 1 - eps] (u None). The interval of each
+    level is found by searchsorted, which picks the same bins as mipnerf's
+    mask over sorted CDFs."""
+    n = weights.shape[0]
+    dev = weights.device
+    wsum = weights.sum(dim=-1, keepdim=True)
+    padding = torch.clamp(1e-5 - wsum, min=0.0)
+    pdf = (weights + padding / weights.shape[-1]) / (wsum + padding)
+    cdf = torch.clamp(torch.cumsum(pdf[:, :-1], dim=-1), max=1.0)
+    cdf = torch.cat([torch.zeros((n, 1), device=dev), cdf, torch.ones((n, 1), device=dev)],
+                    dim=-1)
+    if u is None:
+        u = linspace(0.0, 1.0 - _F32_EPS, num_samples, dev).expand(n, num_samples)
+    else:
+        u = device_const(_strata_values(num_samples), dev) + u * (1.0 / num_samples - _F32_EPS)
+        u = torch.clamp(u, max=1.0 - _F32_EPS)
+    u = u.contiguous()
+    above = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = above - 1
+    above = torch.clamp(above, max=cdf.shape[-1] - 1)
+    cdf0, cdf1 = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    bins0, bins1 = torch.gather(bins, -1, below), torch.gather(bins, -1, above)
+    t = torch.clamp(torch.nan_to_num((u - cdf0) / (cdf1 - cdf0), nan=0.0), 0.0, 1.0)
+    return bins0 + t * (bins1 - bins0)
+
+
+def resample_along_rays(t, weights, u, padding: float):
+    """mip-NeRF's next level's depths (N, T+1) from the last level's (t,
+    N x T+1) and their weights (N, T): the weights max-pooled over
+    neighbouring pairs (each end padded with itself), averaged over
+    neighbouring pairs and raised by `padding`, then T+1 stratified draws
+    u of their density (mipnerf `mip.resample_along_rays`)."""
+    w_pad = torch.cat([weights[:, :1], weights, weights[:, -1:]], dim=-1)
+    w_max = torch.maximum(w_pad[:, :-1], w_pad[:, 1:])
+    blurred = 0.5 * (w_max[:, :-1] + w_max[:, 1:]) + padding
+    return sorted_piecewise_constant_pdf(t, blurred, t.shape[-1], u)
+
+
+def _mip_composite(rgb, density, t, rays_d, bg):
+    """mipnerf's `volumetric_rendering` on intervals t (N, T+1) along rays
+    of length |rays_d|: {"image" (N, 3) over bg, "depth" (the weighted
+    interval middle, clipped to [t_0, t_T]), "acc" and "weights" (N, T)}."""
+    mids = 0.5 * (t[:, :-1] + t[:, 1:])
+    dd = density * (t[:, 1:] - t[:, :-1]) * torch.sqrt((rays_d * rays_d).sum(dim=-1))[:, None]
+    alpha = 1.0 - torch.exp(-dd)
+    trans = torch.exp(-torch.cat([torch.zeros_like(dd[:, :1]),
+                                  torch.cumsum(dd[:, :-1], dim=-1)], dim=-1))
+    w = alpha * trans
+    acc = w.sum(dim=-1)
+    depth = torch.nan_to_num((w * mids).sum(dim=-1) / acc, nan=0.0)
+    depth = torch.minimum(torch.maximum(depth, t[:, 0]), t[:, -1])
+    image = (w[..., None] * rgb).sum(dim=-2) + (1.0 - acc)[:, None] * bg
+    return {"image": image, "depth": depth, "acc": acc, "weights": w}
+
+
+def _mip_level(params, cfg, t, rays_o, rays_d, radii, dir_enc, bg):
+    """One level of mip-NeRF: the frustums of t's intervals encoded, the
+    MLP, the activations and the composite."""
+    with span("render.ipe"):
+        means, covs = cast_cones(t, rays_o, rays_d, radii)
+        x = integrated_pos_enc(means, covs, cfg.min_deg_point, cfg.max_deg_point)
+    with span("render.shade"):
+        raw_rgb, raw_density = net.mipnerf_mlp(params, x, dir_enc, cfg)
+        rgb = torch.sigmoid(raw_rgb) * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding
+        density = F.softplus(raw_density + cfg.density_bias)
+    with span("render.composite"):
+        return _mip_composite(rgb, density, t, rays_d, bg)
+
+
+def render_rays_mip(params, cfg: "net.MipNerfConfig", rays_o, rays_d, radii, jitter=None,
+                    u=None, bg_color=1.0):
+    """mip-NeRF's render (mipnerf `MipNerfModel.__call__`, no density noise):
+    cfg.num_levels levels of cfg.num_samples cone frustums through one MLP,
+    the first on [near, far] (stratified by jitter (N, num_samples + 1), or
+    evenly spaced without), each later one resampled from the last one's
+    weights with the gradient stopped (u (N, num_samples + 1) draws each, or
+    None for the evenly spaced levels). rays_d at unit camera depth, radii
+    (N, 1) (data/rays.py `cone_rays`); bg_color: a scalar, (3,) or (N, 3).
+
+    Returns {"image", "depth", "weights_sum" (the last level's),
+    "level_images" (each level's (N, 3)), "t" (each level's depths (N,
+    num_samples + 1)) and "weights" (each level's (N, num_samples))}.
+    Spans: "render.coarse" (level 0) and "render.fine" (later levels), each
+    holding "render.ipe", "render.shade" and "render.composite" and
+    counting the samples the MLP shades ("mlp_samples"), and
+    "render.resample" between them."""
+    n, s = rays_o.shape[0], cfg.num_samples
+    dev = rays_o.device
+    bg = device_const(bg_color, dev) if isinstance(bg_color, (int, float)) else \
+        torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+    lin = linspace(0.0, 1.0, s + 1, dev)
+    t = cfg.near * (1.0 - lin) + cfg.far * lin
+    if jitter is None:
+        t = t.expand(n, s + 1)
+    else:
+        mids = 0.5 * (t[1:] + t[:-1])
+        lower, upper = torch.cat([t[:1], mids]), torch.cat([mids, t[-1:]])
+        t = lower + (upper - lower) * jitter
+    viewdirs = rays_d / torch.sqrt((rays_d * rays_d).sum(dim=-1, keepdim=True))
+    dir_enc = pos_enc(viewdirs, 0, cfg.deg_view)
+    images, ts, weights = [], [], []
+    for level in range(cfg.num_levels):
+        if level:
+            with span("render.resample"), torch.no_grad():
+                t = resample_along_rays(t, weights[-1].detach(), u, cfg.resample_padding)
+        with span("render.fine" if level else "render.coarse"):
+            count("mlp_samples", n * s)
+            out = _mip_level(params, cfg, t, rays_o, rays_d, radii, dir_enc, bg)
+        images.append(out["image"])
+        ts.append(t)
+        weights.append(out["weights"])
+    return {"image": out["image"], "depth": out["depth"], "weights_sum": out["acc"],
+            "level_images": images, "t": ts, "weights": weights}

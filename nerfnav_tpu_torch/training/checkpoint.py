@@ -138,7 +138,10 @@ def adam_from_optax(optimizer, params, opt_state):
 
 
 def grid_meta_of(cfg) -> dict:
-    """Grid-architecture fingerprint recorded in checkpoint meta."""
+    """Grid-architecture fingerprint recorded in checkpoint meta ({} for a
+    field without a grid)."""
+    if not hasattr(cfg, "grid_levels"):
+        return {}
     return {
         "levels": cfg.grid_levels,
         "level_dim": cfg.grid_level_dim,

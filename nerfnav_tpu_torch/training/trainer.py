@@ -31,6 +31,15 @@ step cache, `scan_steps` (steps here run one at a time, which the reference
 pins as step-identical), `eval_scan` and `render_full(frozen=...)` have no
 effect.
 
+A `MipNerfConfig` in place of the NetworkConfig trains mip-NeRF (Barron et
+al. 2021) through the same step and loop: cone rays with radii (`get_rays(...,
+cone=True)`), `render_rays_mip`'s two levels from the step's stratified and
+resampling draws, the loss 0.1 x the coarse MSE + the fine MSE, Adam(0.9,
+0.999, eps 1e-8) at mipnerf's delayed log-linear rate, and no EMA (the EMA
+params are the params); `render_full` renders it in ray chunks with the
+evenly spaced levels; it takes no occupancy grid, data-parallel mesh,
+poseless batches or `save_mesh`.
+
 With `rand_pose` >= 0 the loop takes poseless similarity batches
 (`clip_step`): a low-resolution frame from a random orbit pose rendered on
 white and scored by `clip_loss_fn` (training/clip_tower.py), every batch
@@ -58,16 +67,19 @@ import torch
 from nerfnav_tpu_torch.data.provider import write_image
 from nerfnav_tpu_torch.data.provider import rand_poses
 from nerfnav_tpu_torch.data.rays import (
-    EMAP_SIDE, RayDraws, draw_rays, get_all_rays, get_padded_rays, get_rays, rays_from_pixels,
-    tile_order,
+    EMAP_SIDE, RayDraws, cone_rays, draw_rays, get_all_rays, get_padded_rays, get_rays,
+    rays_from_pixels, tile_order,
 )
 from nerfnav_tpu_torch.device import resolve_device
-from nerfnav_tpu_torch.models.network import NetworkConfig, init_network
+from nerfnav_tpu_torch.models.network import (
+    MipNerfConfig, NetworkConfig, init_mipnerf, init_network,
+)
 from nerfnav_tpu_torch.models.occupancy import (
     draw_update, init_occupancy_state, mark_untrained_grid, update_extra_state,
 )
 from nerfnav_tpu_torch.models.renderer import (
     RenderConfig, make_field, render_rays, render_rays_grid, render_rays_grid_rounds,
+    render_rays_mip,
 )
 from nerfnav_tpu_torch.ops.marching import (
     MarchKey, beam_contract_violation, dilate_blocks_coarse, draw_march_key, march,
@@ -148,8 +160,10 @@ class StepDraws(NamedTuple):
     rays: Optional[RayDraws]
     bg: Optional[torch.Tensor]  # (num_rays, 3) background colors
     march: Optional[MarchKey] = None
-    jitter: Optional[torch.Tensor] = None   # (num_rays, num_steps)
-    u: Optional[torch.Tensor] = None        # (num_rays, upsample_steps)
+    # (num_rays, num_steps) and (num_rays, upsample_steps); mip-NeRF's are
+    # both (num_rays, num_samples + 1), the coarse strata and the resample
+    jitter: Optional[torch.Tensor] = None
+    u: Optional[torch.Tensor] = None
 
 
 class StepOut(NamedTuple):
@@ -186,6 +200,11 @@ class Trainer:
         rand_pose >= 0 needs (training/clip_tower.py make_clip_loss_fn)."""
         if march_cfg is not None and occupancy_cfg is None:
             raise ValueError("march_cfg requires occupancy_cfg")
+        self.mip = isinstance(cfg, MipNerfConfig)
+        if self.mip and (march_cfg is not None or mesh is not None or sample_groups != 1
+                         or opt.rand_pose >= 0):
+            raise ValueError("mip-NeRF trains on the dense path of one process, with "
+                             "supervised batches")
         self.mesh = mesh
         self._rank = 0
         if mesh is not None:
@@ -220,7 +239,7 @@ class Trainer:
         self._init_gen = torch.Generator().manual_seed(opt.seed)
         self.gen = torch.Generator(device=self.device).manual_seed(opt.seed)
         if params is None:
-            params = init_network(self._init_gen, cfg, device=self.device)
+            params = self._init_params()
         self._occ_version = 0
         self._params_version = 0
         self._mean_count_host = 0.0
@@ -244,21 +263,27 @@ class Trainer:
                 self.log("tensorboardX unavailable; scalars not written")
 
     # ------------------------------------------------------------- state
+    def _init_params(self):
+        init = init_mipnerf if self.mip else init_network
+        return init(self._init_gen, self.cfg, device=self.device)
+
     def _init_state(self, n_images: int, params, occupancy=None) -> TrainState:
         """A fresh TrainState on `params` (copied to f32 leaves that require
         grad): zero Adam moments, EMA = params, error maps at 0.1, the given
         or an empty occupancy state, mean count 0."""
         params = {k: [t.detach().to(self.device, torch.float32).clone().requires_grad_()
                       for t in v] for k, v in params.items()}
-        optimizer = torch.optim.Adam(_leaves(params), lr=self.opt.lr, betas=(0.9, 0.99),
-                                     eps=1e-15)
+        betas, eps = (self.cfg.adam_betas, self.cfg.adam_eps) if self.mip else ((0.9, 0.99),
+                                                                                1e-15)
+        optimizer = torch.optim.Adam(_leaves(params), lr=self.opt.lr, betas=betas, eps=eps)
         if occupancy is None and self.occupancy_cfg is not None:
             occupancy = init_occupancy_state(self.occupancy_cfg, device=self.device)
         self._occ_version += 1
         self._params_version += 1
         return TrainState(
             params=params, optimizer=optimizer,
-            ema_params={k: [t.detach().clone() for t in v] for k, v in params.items()},
+            ema_params=params if self.mip else {k: [t.detach().clone() for t in v]
+                                                for k, v in params.items()},
             error_maps=(torch.full((n_images, EMAP_SIDE**2), 0.1, device=self.device)
                         if self.opt.error_map else None),
             occupancy=occupancy,
@@ -291,8 +316,7 @@ class Trainer:
         EMA, error maps and occupancy: the GUI's reset button."""
         n_images = (self.state.error_maps.shape[0]
                     if self.state.error_maps is not None else 1)
-        self.state = self._init_state(
-            n_images, init_network(self._init_gen, self.cfg, device=self.device))
+        self.state = self._init_state(n_images, self._init_params())
         self.epoch = 0
         self._mean_count_host = 0.0
         self._table_cast_cache = None
@@ -308,7 +332,10 @@ class Trainer:
 
     # ---------------------------------------------------------- schedule
     def _lr(self, count: int) -> float:
-        """LambdaLR's 0.1^(t / lr_horizon) at the pre-increment Adam count."""
+        """LambdaLR's 0.1^(t / lr_horizon) at the pre-increment Adam count;
+        mip-NeRF's schedule at step count + 1 (mipnerf's first step is 1)."""
+        if self.mip:
+            return self.cfg.lr(count + 1)
         return self.opt.lr * (0.1 ** (count / self.lr_horizon))
 
     def _steps_to_phase_boundary(self) -> int:
@@ -387,6 +414,10 @@ class Trainer:
         the jitter and importance draws on the dense one."""
         if self.march_cfg is not None:
             return {"march": draw_march_key(self.gen, n, self.device)}
+        if self.mip:
+            s = self.cfg.num_samples + 1
+            return {"jitter": torch.rand((n, s), generator=self.gen, device=self.device),
+                    "u": torch.rand((n, s), generator=self.gen, device=self.device)}
         rcfg = self.rcfg
         return {"jitter": torch.rand((n, rcfg.num_steps), generator=self.gen,
                                      device=self.device),
@@ -403,7 +434,7 @@ class Trainer:
         with span("train.rays"):
             emap = None if state.error_maps is None else state.error_maps[draws.idx]
             rays = get_rays(arrays["poses"][draws.idx], arrays["intrinsics"], H, W,
-                            draws.rays, emap)
+                            draws.rays, emap, cone=self.mip)
             gt = images[draws.idx].reshape(H * W, C)[rays["inds"]]
             if C == 4:
                 gt = gt[:, :3] * gt[:, 3:] + draws.bg * (1.0 - gt[:, 3:])
@@ -415,6 +446,16 @@ class Trainer:
                 (ro, rd, gt, bg, key, jitter, u), self.mesh)
             budget, groups = budget and budget // groups, 1
         with torch.enable_grad():
+            if self.mip:
+                out = render_rays_mip(state.params, self.cfg, ro, rd, rays["radii"],
+                                      jitter=jitter, u=u, bg_color=bg)
+                per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
+                loss = self.cfg.coarse_loss_mult * sum(
+                    ((img - gt) ** 2).mean() for img in out["level_images"][:-1])
+                loss = loss + per_ray.mean()
+                with span("train.backward"):
+                    grads = list(torch.autograd.grad(loss, _leaves(state.params)))
+                return StepOut(loss.detach(), per_ray.detach(), None, grads, rays["inds"])
             field = make_field(state.params, self.cfg)
             if self.march_cfg is None:
                 out = render_rays(field, self.rcfg, ro, rd, jitter=jitter, u=u, bg_color=bg)
@@ -449,12 +490,14 @@ class Trainer:
             p.grad = g
         opt.step()
         opt.zero_grad(set_to_none=True)
+        state.global_step += 1
+        self._params_version += 1
+        if state.ema_params is state.params:   # no EMA (mip-NeRF)
+            return
         d = self.opt.ema_decay
         ema = _leaves(state.ema_params)
         torch._foreach_mul_(ema, d)
         torch._foreach_add_(ema, torch._foreach_mul(leaves, 1.0 - d))
-        state.global_step += 1
-        self._params_version += 1
 
     @torch.no_grad()
     def apply(self, state: TrainState, out: StepOut, idx: int, H: int, W: int):
@@ -874,7 +917,13 @@ class Trainer:
         Under a mesh every rank renders its block of each chunk (chunk /
         world rays, which the frame's beam must divide: a beam never
         straddles two ranks) and the blocks are gathered, so every rank
-        returns the whole frame."""
+        returns the whole frame.
+
+        mip-NeRF renders row-major chunks of cone rays through both levels
+        at their evenly spaced depths; it takes no crop_aabb."""
+        if self.mip:
+            return self._render_full_mip(params, pose, intrinsics, H, W, bg_color, crop_aabb,
+                                         pixel_offset)
         grid = self.march_cfg is not None
         with torch.no_grad():
             if self.opt.eval_table_dtype != "float32":
@@ -905,6 +954,30 @@ class Trainer:
             image, depth = image[:n], depth[:n]
             if inv is not None:
                 image, depth = image[inv], depth[inv]
+        return image.reshape(H, W, 3), depth.reshape(H, W)
+
+    @torch.no_grad()
+    def _render_full_mip(self, params, pose, intrinsics, H, W, bg_color, crop_aabb,
+                         pixel_offset):
+        if crop_aabb is not None:
+            raise ValueError("mip-NeRF's render takes no crop_aabb: its field has no bound")
+        pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device)
+        intrinsics = torch.as_tensor(np.asarray(intrinsics), dtype=torch.float32,
+                                     device=self.device)
+        j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=self.device),
+                              torch.arange(W, dtype=torch.float32, device=self.device),
+                              indexing="ij")
+        i, j = i.reshape(-1), j.reshape(-1)
+        if pixel_offset is not None:
+            i, j = i + float(pixel_offset[0]), j + float(pixel_offset[1])
+        rays = cone_rays(pose, intrinsics, i, j, H)
+        chunk = self.rcfg.max_ray_batch
+        outs = [render_rays_mip(params, self.cfg, *(rays[k][s:s + chunk]
+                                                    for k in ("rays_o", "rays_d", "radii")),
+                                bg_color=float(bg_color))
+                for s in range(0, H * W, chunk)]
+        image = torch.cat([o["image"] for o in outs])
+        depth = torch.cat([o["depth"] for o in outs])
         return image.reshape(H, W, 3), depth.reshape(H, W)
 
     def _rank_blocks(self, ro, rd, chunk, mcfg):
@@ -1090,6 +1163,8 @@ class Trainer:
         from nerfnav_tpu_torch.models.network import density
         from nerfnav_tpu_torch.utils.mesh import extract_geometry, save_obj, save_ply
 
+        if self.mip:
+            raise ValueError("save_mesh samples the bound cube: mip-NeRF's field has no bound")
         params = self.state.ema_params
         verts, faces, _ = extract_geometry(
             lambda x: density(params, x, self.cfg)["sigma"], self.cfg.bound,
@@ -1166,7 +1241,8 @@ class Trainer:
             ckpt_lib.check_grid_meta(meta, self.cfg, path)
             new = self._init_state(1, tree["params"], tree.get("occupancy", st.occupancy))
             ckpt_lib.adam_from_optax(new.optimizer, new.params, tree["opt_state"])
-            new.ema_params = tree["ema_params"]
+            if not self.mip:
+                new.ema_params = tree["ema_params"]
             new.error_maps = tree.get("error_maps", st.error_maps)
         new.mean_count = st.mean_count
         self.state = new

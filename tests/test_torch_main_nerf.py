@@ -37,14 +37,16 @@ def _resolve(parser_mod, argv):
 def test_make_configs_match(name):
     """The parsed and expanded flags (every flag both parsers have) and every
     field of the four configs equal the JAX package's, but for the port's
-    one field of its own, the hash-grid kernel for training; the dt_gamma
-    warning fires in both exactly when the grid path runs a gamma ladder."""
+    one field of its own, the hash-grid kernel for training, and its own
+    flags (--device, --mipnerf); the dt_gamma warning fires in both exactly
+    when the grid path runs a gamma ladder."""
     opt_j, cfgs_j, warn_j = _resolve(jflags, FLAG_SETS[name])
     opt_t, cfgs_t, warn_t = _resolve(tflags, FLAG_SETS[name])
     vj, vt = vars(opt_j), vars(opt_t)
-    assert set(vt) - set(vj) == {"device"}
-    assert {k: vj[k] for k in vt if k != "device"} == {k: v for k, v in vt.items()
-                                                       if k != "device"}
+    own_flags = {"device", "mipnerf"}
+    assert set(vt) - set(vj) == own_flags and not vt["mipnerf"]
+    assert {k: vj[k] for k in vt if k not in own_flags} == {
+        k: v for k, v in vt.items() if k not in own_flags}
     for cj, ct in zip(cfgs_j, cfgs_t):
         assert (cj is None) == (ct is None)
         if ct is not None:

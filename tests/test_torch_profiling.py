@@ -284,3 +284,75 @@ def test_host_syncs_are_counted_on_the_card():
                  key=lambda k: k[1] - k[0])
     (_, rs, re), = [r for r in profiling.ranges() if r[0] == "test.sleep"][-1:]
     assert ke - ks > 1_000_000 and rs <= ks < ke <= re
+
+
+# ------------------------------------------------------------- mip-NeRF
+MIP_PARENT = {"train.draw": None, "train.step": None, "train.rays": "train.step",
+              "render.coarse": "train.step", "render.resample": "train.step",
+              "render.fine": "train.step", "render.ipe": ("render.coarse", "render.fine"),
+              "render.shade": ("render.coarse", "render.fine"),
+              "render.composite": ("render.coarse", "render.fine"),
+              "train.backward": "train.step", "train.apply": "train.step"}
+
+
+@pytest.fixture(scope="module")
+def mip_run(tmp_path_factory):
+    """A tiny mip-NeRF Trainer through 2 steps under torch.profiler."""
+    from nerfnav_tpu_torch.models.network import MipNerfConfig
+
+    cfg = MipNerfConfig(net_width=32, net_width_condition=16, max_deg_point=4, deg_view=2,
+                        num_samples=8)
+    opt = ttrain.TrainerOptions(name="m", workspace=str(tmp_path_factory.mktemp("mip")),
+                                num_rays=N_RAYS, use_checkpoint="scratch", bg_train="white")
+    tr = ttrain.Trainer(cfg, RenderConfig(), opt, device="cpu")
+    arrays = _arrays()
+    rng = np.random.default_rng(3)
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _loop(tr, arrays, 2, rng)
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith(profiling.PREFIX) and e.device_type() == DeviceType.CPU]
+    return {"cfg": cfg, "events": events, "counters": profiling.counters_since(before),
+            "device_values": {s: profiling._counters[s]["mlp_samples"][1]
+                              for s in ("render.coarse", "render.fine")}}
+
+
+def test_mip_spans_nest_in_the_step(mip_run):
+    events = mip_run["events"]
+    assert {n[len(profiling.PREFIX):] for n, _, _ in events} == set(MIP_PARENT)
+    for name, s, e in events:
+        parent = MIP_PARENT[name[len(profiling.PREFIX):]]
+        inside = {n[len(profiling.PREFIX):] for n, ps, pe in events
+                  if n != name and ps <= s and e <= pe}
+        if parent is None:
+            assert not inside, (name, inside)
+        else:
+            parents = parent if isinstance(parent, tuple) else (parent,)
+            assert inside & set(parents), (name, inside)
+    c = mip_run["counters"]
+    assert c["render.coarse"]["calls"] == c["render.fine"]["calls"] == 2
+    assert c["render.resample"]["calls"] == 2
+    assert c["render.ipe"]["calls"] == c["render.shade"]["calls"] == 4
+
+
+def test_mip_counts_the_mlp_samples_per_step(mip_run):
+    """Each level's span counts N x num_samples a step, exactly; at the
+    benchmark cell's sizes that is 2 x 4096 x 128 a step."""
+    import json
+
+    c, cfg = mip_run["counters"], mip_run["cfg"]
+    for level in ("render.coarse", "render.fine"):
+        assert c[level]["mlp_samples"] == 2 * N_RAYS * cfg.num_samples
+        assert "mlp_samples" not in c["render.shade"]
+    with open(os.path.join(os.path.dirname(__file__), "..", "perfbench", "configs",
+                           "mipnerf-blender.json")) as f:
+        cell = json.load(f)
+    assert cell["num_levels"] * cell["num_rays"] * cell["num_samples"] == 2 * 4096 * 128
+
+
+def test_mip_counting_adds_no_host_sync(mip_run):
+    """The counts are host numbers from the shapes: no device value to read
+    back, and no sync in any span."""
+    assert mip_run["device_values"] == {"render.coarse": [], "render.fine": []}
+    assert all(v["host_syncs"] == 0 for v in mip_run["counters"].values())
