@@ -25,9 +25,26 @@
    device time of its kernels under the profiler, with its byte bound (the
    log line also gives the time its corner rows would take from HBM). The
    kernels line's hashgrid entry adds the kernel's launches on each main
-   path below (frame, train step, sweep, nav: 0, quickstart). With
-   --kernels-only the
-   script stops here, with no result line.
+   path below (frame, train step, sweep, nav: 0, quickstart). Then the
+   mip-NeRF GEMM kernels (csrc/mip_gemm.cu) against their plain twins at the
+   mipnerf-train-blender cell's M = 2^19: each forward layer (K 96, 256,
+   352 with relu, 256 without, the view layer's 288 into 128) and input
+   gradient (the top trunk layer's with the density head's rank-1 term, a
+   trunk layer's, the skip layer's with its strided mask, the view layer's
+   without a mask), bf16 outputs at most one bf16 step apart in at most 1%
+   of the entries and the float32 bias-gradient sums within 1e-5 of their
+   columns' magnitudes (MIP_SHARE, MIP_SUM_TOL), the sums repeating bit for
+   bit; one launch a call; CUDA-event and device times beside the byte
+   bound, the plain twin (the torch chain) and one cuBLAS product into bf16
+   (the kernels line's mip_gemm entry). Then the --mipnerf field on its main
+   paths at the cell's 4096 rays: one Trainer step's loss and gradients and
+   one 4096-ray render_full chunk, each kernel's launches counted from 0 on
+   each path (2 x 10 forward and 2 x 9 input-gradient launches a step, 2 x
+   10 forward a chunk), against the same step and chunk on the CPU's plain
+   twins (MIP_STEP_LOSS_TOL, MIP_STEP_GRAD_TOL, MIP_EVAL_TOL; the card's
+   torch chain beside them as a yardstick), and the ms the host takes to
+   submit one untraced step beside the ms a step takes back to back. With
+   --kernels-only the script stops here, with no result line.
    Then the cascade check (C2): at every float32 x in [1, 64] (the cascades
    from dt of any bound up to 64; the port's configs use bound <= 2), the
    march's cascade choice on this device against the CPU: the raw
@@ -584,6 +601,269 @@ def encode_phase(device, n_dense, n_grid):
         out[what] = t
         log(f"hash-grid encode at N = {n} ({what}): {json.dumps(t)}; all-from-HBM "
             f"sector_ms {sector:.4f}, bound_ms / ms {bound / t['ms']:.3f}")
+    return out
+
+
+# the mip-NeRF layers at the mipnerf-train-blender cell's M (2 x 4096 rays x
+# 128 samples a step, 2^19 a level): (name, K, N, relu) of each forward and
+# (name, K, weight rows, mask, rank-1 term) of each input gradient
+MIP_M = 2**19
+MIP_FORWARD = [("trunk0", 96, 256, True), ("trunk", 256, 256, True),
+               ("skip", 352, 256, True), ("bottleneck", 256, 256, False),
+               ("view", 288, 128, True)]
+MIP_DGRAD = [("top", 256, 256, "own", True), ("trunk", 256, 256, "own", False),
+             ("skip", 256, 352, "skip-buffer", False), ("view", 128, 288, None, False)]
+# kernel vs plain twin on the card: bf16 outputs at most one bf16 step (2^-8
+# relative, 2^-24 of the largest entry near 0) apart, in at most 1% of the
+# entries, since the kernel's K sum takes another order than cuBLAS's and a
+# float32 value a few ulps off can round to the neighbouring bf16 value; the
+# float32 bias-gradient sums within 1e-5 of each column's sum of magnitudes
+MIP_SHARE = 0.01
+MIP_SUM_TOL = 1e-5
+
+
+def mip_step_apart(got, want):
+    """(worst excess over one bf16 step, share of entries that differ)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    allowed = torch.maximum(g.abs(), w.abs()) * 2.0**-8 + float(w.abs().max()) * 2.0**-24
+    return float((diff - allowed).max()), float((diff > 0).float().mean())
+
+
+def mip_bound_ms(m, k, n, extra_bytes=0):
+    """(least ms, what bounds it) of one layer call: A (m, k) read and the
+    (m, n) output written in bf16, the bf16 weight read, plus extra_bytes."""
+    bytes_ = (m * (k + n) + k * n) * 2 + extra_bytes
+    flops = 2.0 * m * k * n
+    t_bytes, t_ops = bytes_ / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mip_phase(device, m):
+    """The mip-NeRF GEMM kernels (csrc/mip_gemm.cu) against their plain twins
+    (ops/mip_gemm.py: today's torch chain) at the cell's shapes, M = m: each
+    forward and input gradient checked, its launches a call counted, and
+    timed by CUDA events (`ms`) and its kernels' device time (`busy_ms`)
+    beside its byte bound, the plain twin and one cuBLAS call into bf16 with
+    no epilogue (`library_ms`, a yardstick only). Returns {layer: numbers}."""
+    from nerfnav_tpu_torch.ops import mip_gemm as mg
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(17)
+    card = device.type == "cuda"
+    out = {}
+
+    def timings(t, kernel, plain, library):
+        for name, fn, iters in (("", kernel, 10), ("plain_", plain, 5), ("library_", library, 10)):
+            t[f"{name}ms"] = event_ms(fn, device, iters)
+            t[f"{name}busy_ms"] = busy_ms(fn, device)
+
+    for name, k, n, relu in MIP_FORWARD:
+        a = torch.randn((m, k), generator=gen).relu().to(device, bf)
+        w = (torch.randn((k, n), generator=gen) * math.sqrt(2.0 / (k + n))).to(device, bf)
+        b = (torch.randn(n, generator=gen) * 0.1).to(device)
+        before = mg.gemm_bias_act.launches
+        got = mg.gemm_bias_act(a, w, b, relu=relu)
+        launches = mg.gemm_bias_act.launches - before
+        check(launches == (1 if card else 0), f"mip {name}: {launches} launches a call")
+        excess, share = mip_step_apart(got, mg.gemm_bias_act_plain(a, w, b, relu))
+        check(excess <= 0 and share <= MIP_SHARE,
+              f"mip forward {name}: {excess:.3g} past a bf16 step, {share:.4f} differ")
+        t = {"m": m, "k": k, "n": n, "relu": relu, "launches": launches,
+             "past_step": excess, "differ": share}
+        b16 = b.to(bf)
+        timings(t, lambda: mg.gemm_bias_act(a, w, b, relu=relu),
+                lambda: mg.gemm_bias_act_plain(a, w, b, relu),
+                lambda: torch.addmm(b16, a, w))
+        t["bound_ms"], t["bound_by"] = mip_bound_ms(m, k, n)
+        out[f"fwd_{name}"] = t
+        log(f"mip forward {name} (K {k}, N {n}): {json.dumps(t)}")
+        del a, got
+    for name, k, rows, mask, rank1 in MIP_DGRAD:
+        g = torch.randn((m, k), generator=gen).to(device, bf)
+        w = (torch.randn((rows, k), generator=gen) * math.sqrt(2.0 / (rows + k))).to(device, bf)
+        w = w[:256]
+        saved = None
+        if mask:
+            extra = 96 if mask == "skip-buffer" else 0
+            saved = torch.randn((m, 256 + extra), generator=gen).relu().to(device, bf)[:, :256]
+        r1 = ((torch.randn((m, 1), generator=gen).to(device, bf),
+               torch.randn((256, 1), generator=gen).to(device, bf)) if rank1 else None)
+        before = mg.gemm_dgrad_mask.launches
+        got16, got_sum = mg.gemm_dgrad_mask(g, w, saved=saved, rank1=r1)
+        launches = mg.gemm_dgrad_mask.launches - before
+        check(launches == (1 if card else 0), f"mip {name}: {launches} launches a call")
+        want16, want_sum = mg.gemm_dgrad_mask_plain(g, w, saved, r1)
+        excess, share = mip_step_apart(got16, want16)
+        d = mg.mm32(g, w.t())
+        if r1 is not None:
+            d = d + r1[0].float() * r1[1].float().t()
+        if saved is not None:
+            d.masked_fill_(saved <= 0, 0.0)
+        sum_err = float(((got_sum - want_sum).abs() / d.abs().sum(dim=0).clamp_min(1e-30)).max())
+        del d
+        again16, again_sum = mg.gemm_dgrad_mask(g, w, saved=saved, rank1=r1)
+        repeat = bool(torch.equal(again16, got16) and torch.equal(again_sum, got_sum))
+        check(excess <= 0 and share <= MIP_SHARE and sum_err <= MIP_SUM_TOL and repeat,
+              f"mip input gradient {name}: {excess:.3g} past a bf16 step, {share:.4f} "
+              f"differ, sums {sum_err:.3g} of their magnitudes, repeat {repeat}")
+        t = {"m": m, "k": k, "n": 256, "mask": mask, "rank1": rank1, "launches": launches,
+             "past_step": excess, "differ": share, "sum_err": sum_err}
+        wt = w.t()
+        timings(t, lambda: mg.gemm_dgrad_mask(g, w, saved=saved, rank1=r1),
+                lambda: mg.gemm_dgrad_mask_plain(g, w, saved, r1),
+                lambda: torch.mm(g, wt))
+        t["bound_ms"], t["bound_by"] = mip_bound_ms(
+            m, k, 256, (m * 256 * 2 if saved is not None else 0) + (m * 2 if rank1 else 0))
+        out[f"dgrad_{name}"] = t
+        log(f"mip input gradient {name} (K {k}): {json.dumps(t)}")
+        del g, got16, want16, again16, saved
+    return out
+
+
+# the --mipnerf field's main paths at the cell's size: one train step of 4096
+# rays (2 x 4096 x 128 samples) and one 4096-ray eval chunk, a 64 x 64 frame
+MIP_RAYS = 4096
+# that step on the card (kernels) against the same step on the CPU (plain
+# twins): both round every activation and activation gradient to bf16, in K
+# sums of other orders, so entries a few ulps apart before a rounding end a
+# bf16 step (2^-8) apart in about 1% of the places, and the difference
+# carries through 8 layers and two levels; a kernel fault (a wrong column, a
+# lost mask or rank-1 term, a missing bias) moves a gradient by O(1). Loss
+# relative, gradients relative L2 per tensor; the eval chunk's colors
+# absolute (a bf16 step at 1 is 3.9e-3)
+MIP_STEP_LOSS_TOL = 1e-4
+MIP_STEP_GRAD_TOL = 1e-2
+MIP_EVAL_TOL = 1e-2
+MIP_HOST_STEPS = 8
+
+
+def mip_paths(device, rays):
+    """The --mipnerf field through the kernels on its main paths, at `rays`
+    rays a step (MIP_RAYS on the card): one Trainer train step's
+    loss_and_grads and one render_full chunk, each with the two kernels'
+    launches counted from 0; the step's loss and gradients on this device
+    against the same step on the CPU (the plain twins), from the same params,
+    draws and rays, with the card's torch chain (the plain twins on the
+    card) beside it as a yardstick; the chunk's image against the CPU's.
+    Then the untraced host: the ms the host takes to submit one train step
+    after a sync (`host_submit_ms`, median of MIP_HOST_STEPS) beside the ms
+    a step takes back to back (`step_ms`). Returns the numbers."""
+    from nerfnav_tpu_torch.models.network import MipNerfConfig, init_mipnerf
+    from nerfnav_tpu_torch.models.renderer import RenderConfig
+    from nerfnav_tpu_torch.ops import mip_gemm as mg
+    from nerfnav_tpu_torch.training import trainer as trainer_mod
+    from nerfnav_tpu_torch.training.trainer import Trainer, TrainerOptions
+
+    cpu, card = torch.device("cpu"), device.type == "cuda"
+    hw = int(math.isqrt(rays))
+    ds = target_frames(hw, seed=5)
+    cfg = MipNerfConfig()
+    gen = torch.Generator().manual_seed(17)
+    params = {k: [p + 0.01 * torch.randn(p.shape, generator=gen) for p in v]
+              for k, v in init_mipnerf(gen, cfg, "cpu").items()}
+    ws = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_mip")
+
+    def trainer(dev):
+        opt = TrainerOptions(name="smoke_mip", workspace=ws, num_rays=rays,
+                             use_checkpoint="scratch", bg_train="white")
+        return Trainer(cfg, RenderConfig(max_ray_batch=rays), opt, device=dev,
+                       params={k: [t.to(dev) for t in v] for k, v in params.items()})
+
+    def launches():
+        return {"bias_act": mg.gemm_bias_act.launches, "dgrad_mask": mg.gemm_dgrad_mask.launches}
+
+    def reset():
+        mg.gemm_bias_act.launches = mg.gemm_dgrad_mask.launches = 0
+
+    tr_c, tr_d = trainer(cpu), trainer(device)
+    arrays_c, arrays_d = tr_c._device_arrays(ds), tr_d._device_arrays(ds)
+    draws = tr_c.draw_step(tr_c.state, 1, hw, hw)
+    to = lambda t: t.to(device)  # noqa: E731
+    draws_d = draws._replace(rays=draws.rays._replace(inds=to(draws.rays.inds)),
+                             bg=to(draws.bg), jitter=to(draws.jitter), u=to(draws.u))
+    get_rays = trainer_mod.get_rays
+
+    def cpu_rays(pose, intrinsics, H, W, d, error_map=None, cone=False, rays=draws.rays):
+        r = get_rays(pose.cpu(), intrinsics.cpu(), H, W, rays, None, cone=cone)
+        return {k: v.to(pose.device) for k, v in r.items()}
+
+    def plain_bias_act(a, w, bias, relu=True, out=None):
+        y = mg.gemm_bias_act_plain(a, w, bias, relu)
+        return y if out is None else out.copy_(y)
+
+    def plain_dgrad(g, w, saved=None, rank1=None):
+        return mg.gemm_dgrad_mask_plain(g, w, saved, rank1)
+
+    kernels = (mg.gemm_bias_act, mg.gemm_dgrad_mask)
+    trainer_mod.get_rays = cpu_rays
+    try:
+        reset()
+        got = tr_d.loss_and_grads(tr_d.state, arrays_d, draws_d)
+        sync(device)
+        step_launches = launches()
+        mg.gemm_bias_act, mg.gemm_dgrad_mask = plain_bias_act, plain_dgrad
+        reset()
+        chain = tr_d.loss_and_grads(tr_d.state, arrays_d, draws_d)
+        chain_launches = launches()
+    finally:
+        trainer_mod.get_rays = get_rays
+        mg.gemm_bias_act, mg.gemm_dgrad_mask = kernels
+    want = tr_c.loss_and_grads(tr_c.state, arrays_c, draws)
+
+    def apart(out):
+        return (abs(float(out.loss) - float(want.loss)) / abs(float(want.loss)),
+                [rel_l2(a.cpu(), w) for a, w in zip(out.grads, want.grads)])
+
+    loss_rel, errs = apart(got)
+    chain_loss_rel, chain_errs = apart(chain)
+    del got, chain, want
+    reset()
+    image, _ = tr_d.render_full(tr_d.state.params, ds.poses[0], ds.intrinsics, hw, hw)
+    sync(device)
+    eval_launches = launches()
+    image_c, _ = tr_c.render_full(tr_c.state.params, ds.poses[0], ds.intrinsics, hw, hw)
+    eval_err = float((image.cpu() - image_c).abs().max())
+    del tr_c, image, image_c
+    # the untraced host: one step submitted after a sync, and steps back to back
+    for _ in range(3):
+        tr_d.train_step(tr_d.state, arrays_d, tr_d.draw_step(tr_d.state, 1, hw, hw))
+    submit = []
+    for _ in range(MIP_HOST_STEPS):
+        sync(device)
+        t0 = time.perf_counter()
+        tr_d.train_step(tr_d.state, arrays_d, tr_d.draw_step(tr_d.state, 1, hw, hw))
+        submit.append((time.perf_counter() - t0) * 1e3)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(MIP_HOST_STEPS):
+        tr_d.train_step(tr_d.state, arrays_d, tr_d.draw_step(tr_d.state, 1, hw, hw))
+    sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / MIP_HOST_STEPS
+    del tr_d
+    shutil.rmtree(ws, ignore_errors=True)
+    out = {"rays": rays, "samples_a_level": rays * cfg.num_samples,
+           "train_step_launches": step_launches, "eval_chunk_launches": eval_launches,
+           "step_loss_rel": loss_rel, "step_grad_rel_l2_max": max(errs),
+           "chain_loss_rel": chain_loss_rel, "chain_grad_rel_l2_max": max(chain_errs),
+           "step_grad_rel_l2": errs, "chain_grad_rel_l2": chain_errs,
+           "eval_max_abs": eval_err, "host_submit_ms": sorted(submit)[len(submit) // 2],
+           "host_submit_ms_all": submit, "step_ms": step_ms}
+    log(f"mip-NeRF paths at {rays} rays, this device vs the CPU: {json.dumps(out)}")
+    want_step = ({"bias_act": 2 * (cfg.net_depth + 2), "dgrad_mask": 2 * (cfg.net_depth + 1)}
+                 if card else {"bias_act": 0, "dgrad_mask": 0})
+    want_eval = {"bias_act": want_step["bias_act"], "dgrad_mask": 0}
+    check(step_launches == want_step, f"mip train step launches {step_launches}, {want_step} "
+          "expected")
+    check(chain_launches == {"bias_act": 0, "dgrad_mask": 0},
+          f"the torch chain's step launched the kernels: {chain_launches}")
+    check(eval_launches == want_eval, f"mip eval chunk launches {eval_launches}, {want_eval} "
+          "expected")
+    check(loss_rel <= MIP_STEP_LOSS_TOL, f"mip step loss {loss_rel:.3g} away from the CPU's")
+    check(max(errs) <= MIP_STEP_GRAD_TOL,
+          f"mip step gradients {max(errs):.3g} away from the CPU's (L2)")
+    check(eval_err <= MIP_EVAL_TOL, f"mip eval chunk {eval_err:.3g} away from the CPU's")
+    del out["step_grad_rel_l2"], out["chain_grad_rel_l2"], out["host_submit_ms_all"]
     return out
 
 
@@ -2040,8 +2320,8 @@ def dense_step_vs_cpu(ref, device, root=REF_DIR, extra=(), images=REF_DENSE_CHEC
                                  bg=to(draws.bg), jitter=to(draws.jitter), u=to(draws.u))
         want = tr_c.loss_and_grads(tr_c.state, arrays_c, draws)
 
-        def cpu_rays(pose, intrinsics, H, W, d, error_map=None, rays=draws.rays):
-            r = get_rays(pose.cpu(), intrinsics.cpu(), H, W, rays, None)
+        def cpu_rays(pose, intrinsics, H, W, d, error_map=None, cone=False, rays=draws.rays):
+            r = get_rays(pose.cpu(), intrinsics.cpu(), H, W, rays, None, cone=cone)
             return {k: v.to(pose.device) for k, v in r.items()}
 
         trainer_mod.get_rays, renderer_mod.sph_from_ray = cpu_rays, cpu_sph
@@ -3614,7 +3894,7 @@ def main():
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
                  "rays": 512, "nav": NAV_SIZES["rehearsal"], "ref": REF_SIZES["rehearsal"],
                  "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32, "grid_n": 1536,
-                 "mesh_res": 32,
+                 "mesh_res": 32, "mip_m": 4099, "mip_rays": 64,
                  "clip": CLIP_WIDTHS["rehearsal"], "quickstart": QS_ARGS["rehearsal"]}
     else:
         if not torch.cuda.is_available():
@@ -3624,7 +3904,7 @@ def main():
                  "rays": 4096, "nav": NAV_SIZES["card"], "ref": REF_SIZES["card"],
                  "bg": BG_SIZES["card"], "dense_n": 4096 * 512,
                  # the grid path's largest point budget, 0.75 x 4096 rays x 64
-                 "grid_n": 196608, "mesh_res": 256,
+                 "grid_n": 196608, "mesh_res": 256, "mip_m": MIP_M, "mip_rays": MIP_RAYS,
                  "clip": CLIP_WIDTHS["card"], "quickstart": QS_ARGS["card"]}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3645,6 +3925,8 @@ def main():
     timer = Timer(device)
     mlp = kernel_phase(device, sizes["mlp_n"], sizes["dense_n"], timer)
     encode = encode_phase(device, sizes["dense_n"], sizes["grid_n"])
+    mip = mip_phase(device, sizes["mip_m"])
+    mip_path = mip_paths(device, sizes["mip_rays"])
     if args.kernels_only:
         return
     cascade = cascade_phase(device)
@@ -3671,7 +3953,11 @@ def main():
                 "source": "nerfnav_tpu_torch/csrc/hashgrid.cu", "replaces": None,
                 **{f"{what}_{k}": v for what, t in encode.items() for k, v in t.items()},
                 **GRID_LAUNCHES}
-    log(json.dumps({"kernels": [entry, hashgrid]}))
+    mip_gemm = {"name": "mip_gemm", "route": "cuda",
+                "source": "nerfnav_tpu_torch/csrc/mip_gemm.cu", "replaces": None,
+                **{f"{layer}_{k}": v for layer, t in mip.items() for k, v in t.items()},
+                **mip_path}
+    log(json.dumps({"kernels": [entry, hashgrid, mip_gemm]}))
     if device.type == "cuda":
         kind = torch.cuda.get_device_name(0)
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -90,6 +90,42 @@ _SIGNATURES = {
             ctypes.c_void_p,  # cudaStream_t
         ],
     },
+    "mip_gemm": {
+        "nerfnav_mip_gemm_bias_act": [
+            ctypes.c_void_p,  # a (M, K) bf16
+            ctypes.c_int,     # a's row stride
+            ctypes.c_void_p,  # w (K_w, N) bf16
+            ctypes.c_int,     # w's row stride
+            ctypes.c_int,     # K_w <= K: w's rows
+            ctypes.c_void_p,  # bias (N,) float32
+            ctypes.c_void_p,  # out (M, N) bf16
+            ctypes.c_int,     # out's row stride
+            ctypes.c_int,     # M
+            ctypes.c_int,     # N
+            ctypes.c_int,     # K
+            ctypes.c_int,     # relu
+            ctypes.c_int,     # blocks
+            ctypes.c_void_p,  # cudaStream_t
+        ],
+        "nerfnav_mip_gemm_dgrad_mask": [
+            ctypes.c_void_p,  # g (M, K) bf16
+            ctypes.c_int,     # g's row stride
+            ctypes.c_void_p,  # w (N, K) bf16
+            ctypes.c_int,     # w's row stride
+            ctypes.c_void_p,  # saved (M, N) bf16, or NULL
+            ctypes.c_int,     # saved's row stride
+            ctypes.c_void_p,  # rank-1 row factor (M,) bf16, or NULL
+            ctypes.c_void_p,  # rank-1 column factor (N,) bf16
+            ctypes.c_void_p,  # out (M, N) bf16
+            ctypes.c_int,     # out's row stride
+            ctypes.c_void_p,  # partial column sums (blocks x 8, N) float32
+            ctypes.c_int,     # M
+            ctypes.c_int,     # N
+            ctypes.c_int,     # K
+            ctypes.c_int,     # blocks
+            ctypes.c_void_p,  # cudaStream_t
+        ],
+    },
 }
 
 _loaded = {}

@@ -31,6 +31,7 @@ import torch
 
 from nerfnav_tpu_torch.device import device_const, resolve_device
 from nerfnav_tpu_torch.ops import fused_mlp as _fused
+from nerfnav_tpu_torch.ops import mip_gemm as mg
 from nerfnav_tpu_torch.ops.activation import trunc_exp
 from nerfnav_tpu_torch.ops.frequency import freq_encode, freq_output_dim
 from nerfnav_tpu_torch.ops.hashgrid import HashGridConfig, hash_grid_encode, hash_grid_init
@@ -245,7 +246,7 @@ class MipNerfConfig:
     max_steps: int = 1_000_000
     adam_betas: tuple = (0.9, 0.999)
     adam_eps: float = 1e-8
-    mlp_backend = "xla"     # the torch matmul chain, not a field: the only one
+    mlp_backend = "xla"     # not a field: never the fused MLP (ops/mip_gemm.py runs it)
 
     @property
     def pos_dim(self) -> int:
@@ -292,32 +293,18 @@ def init_mipnerf(generator, cfg: MipNerfConfig, device="cuda"):
     return out
 
 
-def _mm32(a, b, bias=None):
-    """a @ b (+ bias) of bf16 operands with float32 products, sums and
-    result: one bf16 pass at float32 accumulation, what a TPU's default
-    matmul precision gives mip-NeRF's JAX code. On the CPU the operands are
-    widened, which multiplies them exactly."""
-    if a.is_cuda:
-        if bias is None:
-            return torch.mm(a, b, out_dtype=torch.float32)
-        return torch.addmm(bias, a, b, out_dtype=torch.float32)
-    out = a.float() @ b.float()
-    return out if bias is None else out + bias
-
-
-def _relu_bf16(y):
-    """bf16(relu(y)) of a float32 y: the next layer's operand (rounding and
-    relu commute)."""
-    return y.to(torch.bfloat16).relu_()
-
-
 class _MipMLP(torch.autograd.Function):
     """mip-NeRF's MLP on M = N x T samples, with the backward written out so
     that only the bf16 operands are kept and every gradient is a float32
-    product of bf16 operands, as in the forward. Inputs: the IPE features
-    (M, pos_dim) and the per-ray view encoding (N, dir_dim), neither
-    differentiated; then the weights and biases in params order. Returns
-    (raw rgb (M, 3), raw density (M, 1)), float32."""
+    product of bf16 operands, as in the forward. The wide layers (the trunk,
+    the bottleneck, the view layer) run through ops/mip_gemm.py: on the card
+    one kernel a layer each way, whose epilogue adds the bias, applies the
+    relu and stores bf16 (forward), or adds the density head's rank-1 term,
+    masks, stores bf16 and sums the bias gradient (input gradient); the
+    one- and three-wide heads and the weight gradients are torch products.
+    Inputs: the IPE features (M, pos_dim) and the per-ray view encoding (N,
+    dir_dim), neither differentiated; then the weights and biases in params
+    order. Returns (raw rgb (M, 3), raw density (M, 1)), float32."""
 
     @staticmethod
     def forward(ctx, x, cond, skip, *params):
@@ -326,30 +313,40 @@ class _MipMLP(torch.autograd.Function):
         bs = params[1::2]
         depth = len(ws) - 4
         n, m = cond.shape[0], x.shape[0]
-        x0 = x.to(bf)
+        width, dev = ws[0].shape[1], x.device
+        # a skip layer's input [h, x0] is one buffer: the layer before writes
+        # h into its first columns, and x0 is cast into the rest once
+        bufs = {i: torch.empty((m, width + x.shape[1]), dtype=bf, device=dev)
+                for i in range(1, depth) if i % skip == 0}
+        tails = [buf[:, width:] for buf in bufs.values()]
+        x0 = tails[0].copy_(x) if tails else x.to(bf)
+        for tail in tails[1:]:
+            tail.copy_(x0)
         h = x0
         ins = []
         for i in range(depth):
             ins.append(h)
-            h = _relu_bf16(_mm32(h, ws[i], bs[i]))
-            if i % skip == 0 and i > 0:
-                h = torch.cat([h, x0], dim=-1)
+            buf = bufs.get(i)
+            h = mg.gemm_bias_act(h, ws[i], bs[i], relu=True,
+                                 out=None if buf is None else buf[:, :width])
+            if buf is not None:
+                h = buf
         w_s, w_bn, w_v, w_r = ws[depth:]
         b_s, b_bn, b_v, b_r = bs[depth:]
-        raw_density = _mm32(h, w_s, b_s)
-        bn = _mm32(h, w_bn, b_bn).to(bf)
-        # the view layer's input padded to a multiple of 8 columns with
-        # zeros (and its weight with zero rows): the same sums, aligned rows
+        raw_density = mg.mm32(h, w_s, b_s)
+        # the view layer's input [bottleneck, view encoding] padded to a
+        # multiple of 8 columns with zeros, which meet the weight's missing
+        # rows (read as zeros): the same sums, aligned rows; the bottleneck
+        # writes its first columns
         pad = -(w_v.shape[0]) % 8
-        c = cond.to(bf)[:, None, :].expand(n, m // n, cond.shape[1])
-        v_in = torch.cat([bn.reshape(n, m // n, -1), c,
-                          torch.zeros((n, m // n, pad), dtype=bf, device=x.device)],
-                         dim=-1).reshape(m, -1)
-        w_vp = torch.cat([w_v, torch.zeros((pad, w_v.shape[1]), dtype=bf, device=x.device)])
-        v = _relu_bf16(_mm32(v_in, w_vp, b_v))
-        raw_rgb = _mm32(v, w_r, b_r)
-        ctx.skip, ctx.view_rows = skip, w_v.shape[0]
-        ctx.save_for_backward(*ins, h, v_in, v, *ws[:depth], w_s, w_bn, w_vp, w_r)
+        v_in = torch.empty((m, w_v.shape[0] + pad), dtype=bf, device=dev)
+        tail = torch.nn.functional.pad(cond, (0, pad))
+        v_in.view(n, m // n, -1)[:, :, width:].copy_(tail[:, None, :])
+        mg.gemm_bias_act(h, w_bn, b_bn, relu=False, out=v_in[:, :width])
+        v = mg.gemm_bias_act(v_in, w_v, b_v, relu=True)
+        raw_rgb = mg.mm32(v, w_r, b_r)
+        ctx.view_rows = w_v.shape[0]
+        ctx.save_for_backward(*ins, h, v_in, v, *ws[:depth], w_s, w_bn, w_v, w_r)
         return raw_rgb, raw_density
 
     @staticmethod
@@ -359,31 +356,31 @@ class _MipMLP(torch.autograd.Function):
         depth = (len(saved) - 7) // 2
         ins, (h, v_in, v) = saved[:depth], saved[depth:depth + 3]
         ws = saved[depth + 3:2 * depth + 3]
-        w_s, w_bn, w_vp, w_r = saved[2 * depth + 3:]
+        w_s, w_bn, w_v, w_r = saved[2 * depth + 3:]
         width = ws[0].shape[1]
 
         def layer(inp, g):
             """(bf16 g, weight gradient, bias gradient) of a layer from its
             bf16 input and the float32 gradient g of its output."""
             g16 = g.to(bf)
-            return g16, _mm32(inp.t(), g16), g.sum(dim=0)
+            return g16, mg.mm32(inp.t(), g16), g.sum(dim=0)
 
         gr, dw_r, db_r = layer(v, g_rgb)
-        gv, dw_v, db_v = layer(v_in, _mm32(gr, w_r.t()).masked_fill_(v <= 0, 0.0))
-        gbn, dw_bn, db_bn = layer(h, _mm32(gv, w_vp[:width].t()))
+        gv, dw_v, db_v = layer(v_in, mg.mm32(gr, w_r.t()).masked_fill_(v <= 0, 0.0))
+        # the bottleneck is linear: no mask
+        gbn, db_bn = mg.gemm_dgrad_mask(gv, w_v[:width])
+        dw_bn = mg.mm32(h.t(), gbn)
         gd, dw_s, db_s = layer(h, g_density)
         # the density head has one output: its input gradient is one
-        # product per entry, made elementwise
-        g = _mm32(gbn, w_bn.t()) + gd.float() * w_s.float().t()
+        # product per entry, added in the top trunk layer's epilogue
+        g16, db = mg.gemm_dgrad_mask(gbn, w_bn[:width], saved=h[:, :width],
+                                     rank1=(gd, w_s[:width]))
         trunk = []
         for i in reversed(range(depth)):
-            if i % ctx.skip == 0 and i > 0:
-                g = g[:, :width]
-            out = h if i == depth - 1 else ins[i + 1]
-            g16, dw, db = layer(ins[i], g.masked_fill_(out[:, :width] <= 0, 0.0))
-            trunk = [dw, db] + trunk
+            trunk = [mg.mm32(ins[i].t(), g16), db] + trunk
             if i > 0:
-                g = _mm32(g16, ws[i].t())
+                # a skip layer's input gradient is wanted for h's columns only
+                g16, db = mg.gemm_dgrad_mask(g16, ws[i][:width], saved=ins[i][:, :width])
         return (None, None, None, *trunk, dw_s, db_s, dw_bn, db_bn,
                 dw_v[:ctx.view_rows], db_v, dw_r, db_r)
 
