@@ -21,11 +21,16 @@ grid_backend "fused" (the default) is the hash-grid kernel (ops/hashgrid.py,
 csrc/hashgrid.cu) on a CUDA tensor, for the field's grid and the
 background's; "xla" is the plain eager encode, which nav's configs take
 (make_configs(for_nav=True)): nav differentiates the encode in forward mode.
+
+Each config holds its field's recipe (`init_params`, `adam_*`, `train_lr`,
+`keeps_ema`, `dense_draws`, `cone_rays`, `loss`, `bounded`, `grid_meta`,
+`train_background`): the Trainer, checkpoints and CLI read it, not the type.
 """
 
 from dataclasses import dataclass
 from functools import cached_property
 import math
+from typing import ClassVar
 
 import torch
 
@@ -114,6 +119,39 @@ class NetworkConfig:
     @property
     def compute_dtype(self):
         return torch.bfloat16 if self.mlp_dtype == "bfloat16" else torch.float32
+
+    # torch-ngp's recipe: Adam(0.9, 0.99, eps 1e-15), an EMA, rays in the bound cube
+    adam_betas: ClassVar[tuple] = (0.9, 0.99)
+    adam_eps: ClassVar[float] = 1e-15
+    keeps_ema: ClassVar[bool] = True
+    cone_rays: ClassVar[bool] = False
+    bounded: ClassVar[bool] = True
+    train_background: ClassVar[str] = "random"
+
+    def init_params(self, generator, device):
+        """init_network: torch-ngp's tables and torch.nn.Linear's weights."""
+        return init_network(generator, self, device=device)
+
+    def train_lr(self, count: int, opt) -> float:
+        """torch-ngp's LambdaLR at Adam's pre-increment count (as optax's)."""
+        return opt.lr * (0.1 ** (count / (opt.lr_iters or max(1, opt.iters))))
+
+    def dense_draws(self, gen, n: int, rcfg, device) -> dict:
+        """render_rays' jitter and importance draws (None without) for n rays."""
+        return {"jitter": torch.rand((n, rcfg.num_steps), generator=gen, device=device),
+                "u": (torch.rand((n, rcfg.upsample_steps), generator=gen, device=device)
+                      if rcfg.upsample_steps > 0 else None)}
+
+    def loss(self, out, gt):
+        """(loss, per-ray MSE) of a render against its pixels: torch-ngp's mean."""
+        per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
+        return per_ray.mean(), per_ray
+
+    def grid_meta(self) -> dict:
+        """The grid-architecture fingerprint a checkpoint records."""
+        return {k: getattr(self, "grid_" + k) for k in (
+            "levels", "level_dim", "log2_hashmap_size", "layout", "coord_convention",
+            "max_resolution")}
 
 
 def _mlp_init(generator, dims, device):
@@ -246,7 +284,13 @@ class MipNerfConfig:
     max_steps: int = 1_000_000
     adam_betas: tuple = (0.9, 0.999)
     adam_eps: float = 1e-8
-    mlp_backend = "xla"     # not a field: never the fused MLP (ops/mip_gemm.py runs it)
+    # not a field, and never the fused MLP (ops/mip_gemm.py runs this one):
+    # kept for perfbench/drivers/train_mip.py::check_program_config to read
+    mlp_backend: ClassVar[str] = "xla"
+    keeps_ema: ClassVar[bool] = False
+    cone_rays: ClassVar[bool] = True
+    bounded: ClassVar[bool] = False
+    train_background: ClassVar[str] = "white"
 
     @property
     def pos_dim(self) -> int:
@@ -276,6 +320,32 @@ class MipNerfConfig:
             0.5 * math.pi * min(max(step / self.lr_delay_steps, 0.0), 1.0))
         t = min(max(step / self.max_steps, 0.0), 1.0)
         return delay * math.exp(math.log(self.lr_init) * (1.0 - t) + math.log(self.lr_final) * t)
+
+    def init_params(self, generator, device):
+        """init_mipnerf: mipnerf's Glorot-uniform weights and zero biases."""
+        return init_mipnerf(generator, self, device=device)
+
+    def train_lr(self, count: int, opt) -> float:
+        """`lr` at Adam's pre-increment count + 1 (mipnerf's first step is 1)."""
+        return self.lr(count + 1)
+
+    def dense_draws(self, gen, n: int, rcfg, device) -> dict:
+        """render_rays_mip's strata jitter, then resampling u, each (n, num_samples + 1)."""
+        s = self.num_samples + 1
+        return {"jitter": torch.rand((n, s), generator=gen, device=device),
+                "u": torch.rand((n, s), generator=gen, device=device)}
+
+    def loss(self, out, gt):
+        """(loss, the last level's per-ray MSE): mipnerf's coarse_loss_mult x
+        the earlier levels' mean MSEs, plus the last level's."""
+        per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
+        loss = self.coarse_loss_mult * sum(
+            ((img - gt) ** 2).mean() for img in out["level_images"][:-1])
+        return loss + per_ray.mean(), per_ray
+
+    def grid_meta(self) -> dict:
+        """No grid, no fingerprint."""
+        return {}
 
 
 def init_mipnerf(generator, cfg: MipNerfConfig, device="cuda"):

@@ -175,7 +175,7 @@ def main(argv=None):
         tree["occupancy"] = occupancy
     meta = {"epoch": int(extras.get("epoch", 0)),
             "global_step": int(extras.get("global_step", 0)),
-            "grid": ckpt_lib.grid_meta_of(cfg), "imported_from": "torch-ngp"}
+            "grid": cfg.grid_meta(), "imported_from": "torch-ngp"}
     ckpt_lib.save_checkpoint(args.out, tree, meta)
     print(f"imported {args.ckpt} -> {args.out}")
     print(f"  grid: corner {cfg.grid_levels}x{cfg.grid_level_dim} "

@@ -137,26 +137,11 @@ def adam_from_optax(optimizer, params, opt_state):
                                       "exp_avg_sq": nu.detach().clone()}
 
 
-def grid_meta_of(cfg) -> dict:
-    """Grid-architecture fingerprint recorded in checkpoint meta ({} for a
-    field without a grid)."""
-    if not hasattr(cfg, "grid_levels"):
-        return {}
-    return {
-        "levels": cfg.grid_levels,
-        "level_dim": cfg.grid_level_dim,
-        "log2_hashmap_size": cfg.grid_log2_hashmap_size,
-        "layout": cfg.grid_layout,
-        "coord_convention": cfg.grid_coord_convention,
-        "max_resolution": cfg.grid_max_resolution,
-    }
-
-
 def check_grid_meta(meta: dict, cfg, path: str):
     """Raise when the checkpoint's recorded grid architecture disagrees with
-    cfg (only the keys the file recorded are compared)."""
+    cfg's `grid_meta()` (only the keys the file recorded are compared)."""
     saved = (meta or {}).get("grid")
-    current = grid_meta_of(cfg)
+    current = cfg.grid_meta()
     if saved and any(v != saved[k] for k, v in current.items() if k in saved):
         raise ValueError(
             f"checkpoint {path} was trained with grid architecture {saved}, but "

@@ -5,11 +5,11 @@ and `Trainer`). Each step samples rays of one image (`get_rays`) and renders
 them: with an occupancy grid (`--cuda_ray`, `-O`) by `render_rays_grid` under
 a march key (densely, or packed to the point budget picked from the
 mean-count EMA), without one by the dense `render_rays` with jittered
-samples. It takes the MSE against the image on a random or fixed
-background, and applies Adam(0.9, 0.99, eps 1e-15) at lr 0.1^(t/lr_horizon)
-(the schedule reads the pre-increment count, as optax does), the EMA of the
-params, the error-map EMA and the mean-count EMA. Every 16 steps
-`_maybe_update_occupancy` sweeps the density grid.
+samples, or for a cone-ray field by `render_rays_mip`. It takes the field's
+loss on a random or fixed background and applies Adam at the field's rate,
+the EMA of the params where the field keeps one, the error-map EMA and the
+mean-count EMA; a field's recipe lives in its config (models/network.py).
+Every 16 steps `_maybe_update_occupancy` sweeps the density grid.
 
 `render_full` renders a frame in chunks through the rounds renderer on
 tile-ordered rays (the grid path; with `eval_frame_phase_a`, one frame-wide
@@ -30,15 +30,6 @@ the reference. The reference's compiled programs become eager calls: the
 step cache, `scan_steps` (steps here run one at a time, which the reference
 pins as step-identical), `eval_scan` and `render_full(frozen=...)` have no
 effect.
-
-A `MipNerfConfig` in place of the NetworkConfig trains mip-NeRF (Barron et
-al. 2021) through the same step and loop: cone rays with radii (`get_rays(...,
-cone=True)`), `render_rays_mip`'s two levels from the step's stratified and
-resampling draws, the loss 0.1 x the coarse MSE + the fine MSE, Adam(0.9,
-0.999, eps 1e-8) at mipnerf's delayed log-linear rate, and no EMA (the EMA
-params are the params); `render_full` renders it in ray chunks with the
-evenly spaced levels; it takes no occupancy grid, data-parallel mesh,
-poseless batches or `save_mesh`.
 
 With `rand_pose` >= 0 the loop takes poseless similarity batches
 (`clip_step`): a low-resolution frame from a random orbit pose rendered on
@@ -71,9 +62,7 @@ from nerfnav_tpu_torch.data.rays import (
     rays_from_pixels, tile_order,
 )
 from nerfnav_tpu_torch.device import resolve_device
-from nerfnav_tpu_torch.models.network import (
-    MipNerfConfig, NetworkConfig, init_mipnerf, init_network,
-)
+from nerfnav_tpu_torch.models.network import NetworkConfig
 from nerfnav_tpu_torch.models.occupancy import (
     draw_update, init_occupancy_state, mark_untrained_grid, update_extra_state,
 )
@@ -200,9 +189,8 @@ class Trainer:
         rand_pose >= 0 needs (training/clip_tower.py make_clip_loss_fn)."""
         if march_cfg is not None and occupancy_cfg is None:
             raise ValueError("march_cfg requires occupancy_cfg")
-        self.mip = isinstance(cfg, MipNerfConfig)
-        if self.mip and (march_cfg is not None or mesh is not None or sample_groups != 1
-                         or opt.rand_pose >= 0):
+        if cfg.cone_rays and (march_cfg is not None or mesh is not None or sample_groups != 1
+                              or opt.rand_pose >= 0):
             raise ValueError("mip-NeRF trains on the dense path of one process, with "
                              "supervised batches")
         self.mesh = mesh
@@ -232,14 +220,13 @@ class Trainer:
         self.workspace = opt.workspace
         self.ckpt_dir = os.path.join(opt.workspace, "checkpoints")
         self.log_path = os.path.join(opt.workspace, f"log_{opt.name}.txt")
-        self.lr_horizon = opt.lr_iters or max(1, opt.iters)
         self.epoch = 0
         # the init weights come from a CPU generator (same tables on every
         # device); the step and sweep draws from one on the Trainer's device
         self._init_gen = torch.Generator().manual_seed(opt.seed)
         self.gen = torch.Generator(device=self.device).manual_seed(opt.seed)
         if params is None:
-            params = self._init_params()
+            params = cfg.init_params(self._init_gen, self.device)
         self._occ_version = 0
         self._params_version = 0
         self._mean_count_host = 0.0
@@ -263,27 +250,22 @@ class Trainer:
                 self.log("tensorboardX unavailable; scalars not written")
 
     # ------------------------------------------------------------- state
-    def _init_params(self):
-        init = init_mipnerf if self.mip else init_network
-        return init(self._init_gen, self.cfg, device=self.device)
-
     def _init_state(self, n_images: int, params, occupancy=None) -> TrainState:
         """A fresh TrainState on `params` (copied to f32 leaves that require
         grad): zero Adam moments, EMA = params, error maps at 0.1, the given
         or an empty occupancy state, mean count 0."""
         params = {k: [t.detach().to(self.device, torch.float32).clone().requires_grad_()
                       for t in v] for k, v in params.items()}
-        betas, eps = (self.cfg.adam_betas, self.cfg.adam_eps) if self.mip else ((0.9, 0.99),
-                                                                                1e-15)
-        optimizer = torch.optim.Adam(_leaves(params), lr=self.opt.lr, betas=betas, eps=eps)
+        optimizer = torch.optim.Adam(_leaves(params), lr=self.opt.lr,
+                                     betas=self.cfg.adam_betas, eps=self.cfg.adam_eps)
         if occupancy is None and self.occupancy_cfg is not None:
             occupancy = init_occupancy_state(self.occupancy_cfg, device=self.device)
         self._occ_version += 1
         self._params_version += 1
         return TrainState(
             params=params, optimizer=optimizer,
-            ema_params=params if self.mip else {k: [t.detach().clone() for t in v]
-                                                for k, v in params.items()},
+            ema_params=({k: [t.detach().clone() for t in v] for k, v in params.items()}
+                        if self.cfg.keeps_ema else params),
             error_maps=(torch.full((n_images, EMAP_SIDE**2), 0.1, device=self.device)
                         if self.opt.error_map else None),
             occupancy=occupancy,
@@ -316,7 +298,7 @@ class Trainer:
         EMA, error maps and occupancy: the GUI's reset button."""
         n_images = (self.state.error_maps.shape[0]
                     if self.state.error_maps is not None else 1)
-        self.state = self._init_state(n_images, self._init_params())
+        self.state = self._init_state(n_images, self.cfg.init_params(self._init_gen, self.device))
         self.epoch = 0
         self._mean_count_host = 0.0
         self._table_cast_cache = None
@@ -332,11 +314,8 @@ class Trainer:
 
     # ---------------------------------------------------------- schedule
     def _lr(self, count: int) -> float:
-        """LambdaLR's 0.1^(t / lr_horizon) at the pre-increment Adam count;
-        mip-NeRF's schedule at step count + 1 (mipnerf's first step is 1)."""
-        if self.mip:
-            return self.cfg.lr(count + 1)
-        return self.opt.lr * (0.1 ** (count / self.lr_horizon))
+        """The field's rate at the pre-increment Adam count."""
+        return self.cfg.train_lr(count, self.opt)
 
     def _steps_to_phase_boundary(self) -> int:
         """Steps until the next occupancy-update or dt-anneal boundary."""
@@ -411,22 +390,14 @@ class Trainer:
 
     def _render_draws(self, n: int) -> dict:
         """The render's draws for n rays: the march key on the grid path,
-        the jitter and importance draws on the dense one."""
+        the field's dense draws otherwise."""
         if self.march_cfg is not None:
             return {"march": draw_march_key(self.gen, n, self.device)}
-        if self.mip:
-            s = self.cfg.num_samples + 1
-            return {"jitter": torch.rand((n, s), generator=self.gen, device=self.device),
-                    "u": torch.rand((n, s), generator=self.gen, device=self.device)}
-        rcfg = self.rcfg
-        return {"jitter": torch.rand((n, rcfg.num_steps), generator=self.gen,
-                                     device=self.device),
-                "u": (torch.rand((n, rcfg.upsample_steps), generator=self.gen,
-                                 device=self.device) if rcfg.upsample_steps > 0 else None)}
+        return self.cfg.dense_draws(self.gen, n, self.rcfg, self.device)
 
     def loss_and_grads(self, state: TrainState, arrays, draws: StepDraws) -> StepOut:
-        """Render one ray batch and differentiate the MSE w.r.t. the params
-        (reference trainer.py:455-506; the dense branch :496-500). Under a
+        """Render one ray batch and differentiate the field's loss w.r.t. the
+        params (reference trainer.py:455-506; the dense branch :496-500). Under a
         mesh this rank renders its block of the batch and packs it into
         budget / world slots."""
         images = arrays["images"]
@@ -434,7 +405,7 @@ class Trainer:
         with span("train.rays"):
             emap = None if state.error_maps is None else state.error_maps[draws.idx]
             rays = get_rays(arrays["poses"][draws.idx], arrays["intrinsics"], H, W,
-                            draws.rays, emap, cone=self.mip)
+                            draws.rays, emap, cone=self.cfg.cone_rays)
             gt = images[draws.idx].reshape(H * W, C)[rays["inds"]]
             if C == 4:
                 gt = gt[:, :3] * gt[:, 3:] + draws.bg * (1.0 - gt[:, 3:])
@@ -446,25 +417,17 @@ class Trainer:
                 (ro, rd, gt, bg, key, jitter, u), self.mesh)
             budget, groups = budget and budget // groups, 1
         with torch.enable_grad():
-            if self.mip:
+            if self.cfg.cone_rays:
                 out = render_rays_mip(state.params, self.cfg, ro, rd, rays["radii"],
                                       jitter=jitter, u=u, bg_color=bg)
-                per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
-                loss = self.cfg.coarse_loss_mult * sum(
-                    ((img - gt) ** 2).mean() for img in out["level_images"][:-1])
-                loss = loss + per_ray.mean()
-                with span("train.backward"):
-                    grads = list(torch.autograd.grad(loss, _leaves(state.params)))
-                return StepOut(loss.detach(), per_ray.detach(), None, grads, rays["inds"])
-            field = make_field(state.params, self.cfg)
-            if self.march_cfg is None:
-                out = render_rays(field, self.rcfg, ro, rd, jitter=jitter, u=u, bg_color=bg)
+            elif self.march_cfg is None:
+                out = render_rays(make_field(state.params, self.cfg), self.rcfg, ro, rd,
+                                  jitter=jitter, u=u, bg_color=bg)
             else:
-                out = render_rays_grid(
-                    field, state.occupancy, self._train_march_cfg(), ro, rd, key=key,
-                    bg_color=bg, sample_budget=budget, sample_groups=groups)
-            per_ray = ((out["image"] - gt) ** 2).mean(dim=-1)
-            loss = per_ray.mean()
+                out = render_rays_grid(make_field(state.params, self.cfg), state.occupancy,
+                                       self._train_march_cfg(), ro, rd, key=key, bg_color=bg,
+                                       sample_budget=budget, sample_groups=groups)
+            loss, per_ray = self.cfg.loss(out, gt)
             with span("train.backward"):
                 grads = list(torch.autograd.grad(loss, _leaves(state.params)))
         loss, per_ray, n_samples = loss.detach(), per_ray.detach(), out.get("n_samples")
@@ -492,7 +455,7 @@ class Trainer:
         opt.zero_grad(set_to_none=True)
         state.global_step += 1
         self._params_version += 1
-        if state.ema_params is state.params:   # no EMA (mip-NeRF)
+        if not self.cfg.keeps_ema:
             return
         d = self.opt.ema_decay
         ema = _leaves(state.ema_params)
@@ -919,11 +882,13 @@ class Trainer:
         straddles two ranks) and the blocks are gathered, so every rank
         returns the whole frame.
 
-        mip-NeRF renders row-major chunks of cone rays through both levels
-        at their evenly spaced depths; it takes no crop_aabb."""
-        if self.mip:
-            return self._render_full_mip(params, pose, intrinsics, H, W, bg_color, crop_aabb,
-                                         pixel_offset)
+        A cone-ray field renders unpadded row-major chunks
+        (`_render_full_cones`); a field without a bound takes no crop_aabb."""
+        if crop_aabb is not None and not self.cfg.bounded:
+            raise ValueError("mip-NeRF's render takes no crop_aabb: its field has no bound")
+        if self.cfg.cone_rays:
+            return self._render_full_cones(params, pose, intrinsics, H, W, bg_color,
+                                           pixel_offset)
         grid = self.march_cfg is not None
         with torch.no_grad():
             if self.opt.eval_table_dtype != "float32":
@@ -957,10 +922,8 @@ class Trainer:
         return image.reshape(H, W, 3), depth.reshape(H, W)
 
     @torch.no_grad()
-    def _render_full_mip(self, params, pose, intrinsics, H, W, bg_color, crop_aabb,
-                         pixel_offset):
-        if crop_aabb is not None:
-            raise ValueError("mip-NeRF's render takes no crop_aabb: its field has no bound")
+    def _render_full_cones(self, params, pose, intrinsics, H, W, bg_color, pixel_offset):
+        """render_full of a cone-ray field: unpadded row-major chunks, every level."""
         pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device)
         intrinsics = torch.as_tensor(np.asarray(intrinsics), dtype=torch.float32,
                                      device=self.device)
@@ -1163,7 +1126,7 @@ class Trainer:
         from nerfnav_tpu_torch.models.network import density
         from nerfnav_tpu_torch.utils.mesh import extract_geometry, save_obj, save_ply
 
-        if self.mip:
+        if not self.cfg.bounded:
             raise ValueError("save_mesh samples the bound cube: mip-NeRF's field has no bound")
         params = self.state.ema_params
         verts, faces, _ = extract_geometry(
@@ -1197,7 +1160,7 @@ class Trainer:
         if self._rank:
             return
         meta = {"epoch": self.epoch, "global_step": self.global_step,
-                "stats": dict(self.stats), "grid": ckpt_lib.grid_meta_of(self.cfg)}
+                "stats": dict(self.stats), "grid": self.cfg.grid_meta()}
         if best:
             ckpt_lib.save_checkpoint(os.path.join(self.ckpt_dir, f"{self.opt.name}_best"),
                                      self.state.ema_params, meta)
@@ -1241,7 +1204,7 @@ class Trainer:
             ckpt_lib.check_grid_meta(meta, self.cfg, path)
             new = self._init_state(1, tree["params"], tree.get("occupancy", st.occupancy))
             ckpt_lib.adam_from_optax(new.optimizer, new.params, tree["opt_state"])
-            if not self.mip:
+            if self.cfg.keeps_ema:
                 new.ema_params = tree["ema_params"]
             new.error_maps = tree.get("error_maps", st.error_maps)
         new.mean_count = st.mean_count

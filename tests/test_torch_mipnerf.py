@@ -360,7 +360,7 @@ def test_main_nerf_trains_and_tests_mipnerf(tmp_path, monkeypatch):
     args = [scene, "--mipnerf", "--iters", "100", "--num_rays", "32", "--device", "cpu",
             "--workspace", str(tmp_path / "ws"), "--scale", "1.0"]
     tr = main_nerf.main(args)
-    assert tr.mip and tr.opt.bg_train == "white" and tr.global_step == 100
+    assert tr.cfg.cone_rays and tr.opt.bg_train == "white" and tr.global_step == 100
     assert np.isfinite(tr.stats["loss"][0]) and np.isfinite(tr.stats["results"][-1])
     tt = main_nerf.main(args + ["--test"])
     assert tt.global_step == 100

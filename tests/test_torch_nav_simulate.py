@@ -72,7 +72,7 @@ def test_load_field_from_trainer_checkpoint(tmp_path):
                 if k.startswith("blocks")})
     ckpt_lib.save_checkpoint(str(tmp_path / "checkpoints" / "ngp_ep0001"),
                              {"params": ema, "ema_params": ema, "occupancy": occ},
-                             {"grid": ckpt_lib.grid_meta_of(cfg)})
+                             {"grid": cfg.grid_meta()})
     field, occupancy = tsim.load_field(opt, cfg, torch.device("cpu"))
     x = torch.rand((100, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
     want = make_field(ema, cfg).density_fn(x)[0]
@@ -87,7 +87,7 @@ def test_load_field_from_trainer_checkpoint(tmp_path):
                                                     [0.0, 1.0, 0.1], [0.2, 1.0, 0.1]]), dim=-1)
     assert march_fn(o, d)["valid"].any()
     ckpt_lib.save_checkpoint(str(tmp_path / "checkpoints" / "ngp_best"), ema,
-                             {"grid": ckpt_lib.grid_meta_of(cfg)})
+                             {"grid": cfg.grid_meta()})
     opt.ckpt = "best"
     field, occupancy = tsim.load_field(opt, cfg, torch.device("cpu"))
     assert occupancy is None
@@ -108,7 +108,7 @@ def test_jax_checkpoint_loads(tmp_path):
                               grid_layout="cell", mlp_dtype="bfloat16")
     pj = jnet.init_network(jax.random.PRNGKey(2), jcfg)
     jckpt.save_checkpoint(str(tmp_path / "checkpoints" / "ngp_best.npz"), pj,
-                          {"grid": ckpt_lib.grid_meta_of(cfg)})
+                          {"grid": cfg.grid_meta()})
     opt.ckpt = "best"
     field, _ = tsim.load_field(opt, cfg, torch.device("cpu"))
     from nerfnav_tpu.models import renderer as jrend

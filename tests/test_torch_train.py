@@ -422,3 +422,75 @@ def test_train_loop_and_evaluate(tmp_path):
     assert path == os.path.join(tt.workspace, "meshes", "t_2.ply")
     head = open(path).read().split("end_header")[0]
     assert "element vertex" in head and "element vertex 0\n" not in head
+
+
+# -------------------------------------------------------------- the field seam
+MIP_TINY = dict(net_width=32, net_width_condition=32, max_deg_point=6, deg_view=2,
+                num_samples=8)
+NGP_GRID_META = {"levels": 16, "level_dim": 2, "log2_hashmap_size": 19, "layout": "corner",
+                 "coord_convention": "vertex", "max_resolution": 2048}
+# Adam (betas, eps), the rate at Adam's counts 0, 1 and 2499, EMA kept, cone
+# rays, bounded, the checkpoint's grid fingerprint, the training background
+SEAM = {
+    "ngp": (tnet.NetworkConfig(), ((0.9, 0.99), 1e-15),
+            (0.01, 0.009999232501089904, 0.00825467539811731),
+            True, False, True, NGP_GRID_META, "random"),
+    "mip": (tnet.MipNerfConfig(), ((0.9, 0.999), 1e-8),
+            (5.310993194157413e-06, 5.621983401078503e-06, 0.0004942765473284691),
+            False, True, False, {}, "white"),
+}
+
+
+@pytest.mark.parametrize("field", sorted(SEAM))
+def test_field_config_members(field, tmp_path):
+    """What the Trainer, the checkpoints and the CLI ask a field's config,
+    pinned to each field's recipe (torch-ngp's at the default flags,
+    mipnerf's Blender config): Adam as the built optimizer holds it, the
+    rate at Adam's pre-increment counts, the EMA, cone rays, the bound, the
+    grid fingerprint a checkpoint records and the training background."""
+    cfg, adam, rates, ema, cones, bounded, meta, bg = SEAM[field]
+    tr = ttrain.Trainer(cfg, trend.RenderConfig(),
+                        ttrain.TrainerOptions(workspace=str(tmp_path), num_rays=8,
+                                              use_checkpoint="scratch"),
+                        params={"net": [torch.zeros(3)]}, device="cpu")
+    group = tr.state.optimizer.param_groups[0]
+    assert (tuple(group["betas"]), group["eps"]) == adam
+    assert tuple(tr._lr(c) for c in (0, 1, 2499)) == rates
+    assert cfg.keeps_ema is ema
+    assert (tr.state.ema_params is tr.state.params) is not ema
+    assert (cfg.cone_rays, cfg.bounded) == (cones, bounded)
+    assert cfg.grid_meta() == meta and cfg.train_background == bg
+    draws = tr.draw_step(tr.state, 0, 4, 4)
+    s = cfg.num_samples + 1 if cones else tr.rcfg.num_steps
+    assert draws.jitter.shape == (8, s) and draws.march is None
+
+
+@pytest.mark.parametrize("name", ["render_rays_mip", "render_rays_grid", "draw_update"])
+def test_trainer_looks_up_rebound_names_at_call_time(name, tmp_path, monkeypatch):
+    """perfbench's harness rebinds these names in the trainer module to
+    record a step's render or a sweep's draws, so a step (a sweep for
+    draw_update) must look each up there when it runs."""
+    calls = []
+    orig = getattr(ttrain, name)
+
+    def spy(*a, **k):
+        calls.append(name)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(ttrain, name, spy)
+    opt = ttrain.TrainerOptions(name="t", workspace=str(tmp_path), num_rays=32,
+                                use_checkpoint="scratch")
+    if name == "render_rays_mip":
+        tt = ttrain.Trainer(tnet.MipNerfConfig(**MIP_TINY), trend.RenderConfig(), opt,
+                            device="cpu")
+    else:
+        tt = ttrain.Trainer(tnet.NetworkConfig(**_net_kw()), trend.RenderConfig(), opt,
+                            occupancy_cfg=TOccCfg(**OCC), march_cfg=tm.MarchConfig(**MARCH),
+                            device="cpu")
+        occ, _ = shell_occupancy(32, 2)
+        tt.set_occupancy({**tt.occupancy, **occupancy_from_numpy(occ, device="cpu")})
+    if name == "draw_update":
+        tt._maybe_update_occupancy()
+    else:
+        tt.train_step(tt.state, tt._device_arrays(_dataset()), tt.draw_step(tt.state, 0, HW, HW))
+    assert calls == [name]
