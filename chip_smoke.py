@@ -43,8 +43,18 @@
    10 forward a chunk), against the same step and chunk on the CPU's plain
    twins (MIP_STEP_LOSS_TOL, MIP_STEP_GRAD_TOL, MIP_EVAL_TOL; the card's
    torch chain beside them as a yardstick), and the ms the host takes to
-   submit one untraced step beside the ms a step takes back to back. With
-   --kernels-only the script stops here, with no result line.
+   submit one untraced step beside the ms a step takes back to back. Then
+   the fused MLP's backward kernel pair (nerfnav_fused_mlp_backward) against
+   `_mlp_backward` on the card: sigma and color at a dense step's N
+   (2,097,152) and a grid step's (65,536), bg at 4096, dx and every dW
+   within MLP_BWD_TOL, two calls bit for bit; each timed (CUDA-graph
+   replays and CUDA events) beside the plain version on the card and its
+   byte bound. Then the benchmark's instant-ngp-nerf train
+   steps (NGP_FLAGS, 4096 rays): the fused launches, forward and backward,
+   of one dense and one grid step (2 and 2 each), and one dense step's
+   gradients with the backward kernel against the plain backward
+   (GRAD_TOL). With --kernels-only the script stops here, with no result
+   line.
    Then the cascade check (C2): at every float32 x in [1, 64] (the cascades
    from dt of any bound up to 64; the port's configs use bound <= 2), the
    march's cascade choice on this device against the CPU: the raw
@@ -865,6 +875,155 @@ def mip_paths(device, rays):
     check(eval_err <= MIP_EVAL_TOL, f"mip eval chunk {eval_err:.3g} away from the CPU's")
     del out["step_grad_rel_l2"], out["chain_grad_rel_l2"], out["host_submit_ms_all"]
     return out
+
+
+# the fused MLP's backward kernel against _mlp_backward on the card: relative
+# L2 of dx and every dW (tests/test_torch_fused_mlp_backward_kernel.py's:
+# both round at the same points, only the f32 sums' order differs)
+MLP_BWD_TOL = 2e-3
+# the benchmark's instant-ngp-nerf flags (perfbench/configs); its grid cell
+# adds --cuda_ray
+NGP_FLAGS = ("--ff", "--fp16", "--bound", "1", "--scale", "0.8", "--dt_gamma", "0")
+
+
+def mlp_bwd_bound_ms(n, dims):
+    """Least time of one backward call: x and g read and dx written once in
+    f32, the bf16 weights read and the f32 dW written once, against 3x the
+    forward's operations (the recompute, dh and dW) at the dense bf16 peak."""
+    weights = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    t_bytes = (n * (2 * dims[0] + dims[-1]) * 4 + weights * 6) / H100_BYTES_PER_S * 1e3
+    t_ops = 6 * n * weights / H100_BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mlp_backward_phase(device, n_dense, n_grid, timer):
+    """The fused MLP's backward (the kernel pair on the card, `_backward`'s
+    route) against `_mlp_backward` on this device: the sigma and color nets
+    at a dense step's N and a grid step's, the bg net at one chunk's, dx and
+    every dW within MLP_BWD_TOL, a second call bit for bit, one launch a
+    call. Then the sigma and color calls timed at both N: CUDA-graph replays
+    (`ms`), CUDA events around calls issued one after another (`event_ms`),
+    the plain version on this device (`plain_ms`) and the byte or FLOP
+    bound.
+    Returns the kernels-line fields."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(3)
+    card = device.type == "cuda"
+    errs, out = {}, {}
+    for name in ("sigma", "color", "bg"):
+        dims = MLP_SHAPES[name]
+        ws = mlp_weights(dims, gen, device)
+        wb = [w.to(torch.bfloat16) for w in ws]
+        for n in ((n_dense, n_grid) if name != "bg" else (BG_N,)):
+            x = torch.randn((n, dims[0]), generator=gen).to(device)
+            g = torch.randn((n, dims[-1]), generator=gen).to(device)
+
+            def kernel(x=x, ws=ws, wb=wb, g=g, dims=dims):
+                return fm._backward(x, ws, wb, g, dims, "relu", "none")
+
+            def plain(x=x, ws=ws, g=g):
+                return fm._mlp_backward(x, ws, g, "relu", "none")
+
+            before = fm.fused_mlp.bwd_launches
+            got, again, want = kernel(), kernel(), plain()
+            check(fm.fused_mlp.bwd_launches - before == 2 * card,
+                  f"backward {name} N={n}: {fm.fused_mlp.bwd_launches - before} launches")
+            got, again, want = ([got[0], *got[1]], [again[0], *again[1]], [want[0], *want[1]])
+            err = max(rel_l2(a, b) for a, b in zip(got, want))
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"backward {name} N={n}: two calls differ")
+            check(err <= MLP_BWD_TOL, f"backward {name} N={n}: {err} from the plain version (L2)")
+            errs[f"{name}_{n}"] = err
+            if name == "bg":
+                continue
+            t = {"ms": timer(kernel), "event_ms": event_ms(kernel, device),
+                 "plain_ms": timer(plain), "bound_ms": mlp_bwd_bound_ms(n, dims)[0],
+                 "bound_by": mlp_bwd_bound_ms(n, dims)[1], "rel_l2": err}
+            t["plain_over_kernel"] = t["plain_ms"] / t["ms"]
+            out[f"{name}_{n}"] = t
+    log("fused_mlp backward, kernel vs plain on this device:",
+        json.dumps({"rel_l2": errs, "bound": MLP_BWD_TOL, "timed": out}))
+    return {"bwd_max_rel_l2": max(errs.values()),
+            **{f"bwd_{k}_{f}": v for k, t in out.items() for f, v in t.items()
+               if f in ("ms", "event_ms", "plain_ms", "bound_ms")}}
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """The fused MLP's backward routed to `_mlp_backward` within the block;
+    the forward still launches its kernel."""
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+
+    takes = fm.backward_takes_kernel
+    fm.backward_takes_kernel = lambda dims, activation: False
+    try:
+        yield
+    finally:
+        fm.backward_takes_kernel = takes
+
+
+def mlp_backward_paths(device, sizes):
+    """The benchmark's instant-ngp-nerf train steps (NGP_FLAGS) at
+    sizes["rays"] rays on four target frames: the fused launches, forward and
+    backward, of one dense step and of one grid step (after a sweep of a
+    grid marked as the grid cell marks it), and one dense step's gradients
+    with the backward kernel against the same step with the plain backward
+    (GRAD_TOL, relative L2 per param tensor). Returns the launches."""
+    from nerfnav_tpu_torch.cli.flags import build_parser, make_configs
+    from nerfnav_tpu_torch.models.occupancy import mark_untrained_grid
+    from nerfnav_tpu_torch.ops import fused_mlp as fm
+    from nerfnav_tpu_torch.training.trainer import Trainer, TrainerOptions
+
+    ws = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_bwd")
+    ds = target_frames(sizes["hw"], seed=7)
+
+    def trainer(*extra):
+        opt = build_parser("chip_smoke").parse_args(["scene", *NGP_FLAGS, *extra])
+        cfg, rcfg, occ_cfg, mcfg = make_configs(opt)
+        topt = TrainerOptions(name="smoke_bwd", workspace=ws, num_rays=sizes["rays"],
+                              use_checkpoint="scratch")
+        return Trainer(cfg, rcfg, topt, occupancy_cfg=occ_cfg, march_cfg=mcfg, device=device)
+
+    def launches(step):
+        f0, b0 = fm.fused_mlp.launches, fm.fused_mlp.bwd_launches
+        step()
+        sync(device)
+        return {"forward": fm.fused_mlp.launches - f0, "backward": fm.fused_mlp.bwd_launches - b0}
+
+    tr = trainer()
+    arrays = tr._device_arrays(ds)
+    draws = tr.draw_step(tr.state, 0, ds.H, ds.W)
+    got = tr.loss_and_grads(tr.state, arrays, draws)
+    with plain_backward():
+        want = tr.loss_and_grads(tr.state, arrays, draws)
+    loss_rel = abs(float(got.loss) - float(want.loss)) / abs(float(want.loss))
+    errs = [rel_l2(a, b) for a, b in zip(got.grads, want.grads)]
+    del got, want
+    dense = launches(lambda: tr.train_step(tr.state, arrays, tr.draw_step(tr.state, 1, ds.H,
+                                                                            ds.W)))
+    del tr
+    tr = trainer("--cuda_ray")
+    arrays = tr._device_arrays(ds)
+    tr.set_occupancy(mark_untrained_grid(
+        tr.state.occupancy, tr.occupancy_cfg, arrays["poses"], arrays["intrinsics"], ds.H, ds.W))
+    tr._maybe_update_occupancy()
+    grid = launches(lambda: tr.train_step(tr.state, arrays, tr.draw_step(tr.state, 0, ds.H,
+                                                                           ds.W)))
+    del tr
+    shutil.rmtree(ws, ignore_errors=True)
+    out = {"dense_step_launches": dense, "grid_step_launches": grid,
+           "dense_step_loss_rel": loss_rel, "dense_step_grad_rel_l2_max": max(errs)}
+    log(f"fused_mlp backward on the benchmark's train steps at {sizes['rays']} rays:",
+        json.dumps({**out, "dense_step_grad_rel_l2": errs, "bound": GRAD_TOL}))
+    per_net = 2 if device.type == "cuda" else 0   # sigma and color
+    want_launches = {"forward": per_net, "backward": per_net}
+    check(dense == want_launches and grid == want_launches,
+          f"fused launches a dense step {dense}, a grid step {grid}; {want_launches} expected")
+    check(loss_rel <= 1e-6, f"the dense step's loss moved by {loss_rel} with the backward kernel")
+    check(max(errs) <= GRAD_TOL,
+          f"the dense step's gradients with the backward kernel {max(errs)} away (L2)")
+    return {f"bwd_{k}": v for k, v in out.items()}
 
 
 # the hash-grid kernel launches of each main path chip_smoke.py drives (the
@@ -3894,7 +4053,7 @@ def main():
         sizes = {"hw": 128, "grid": 32, "log2": 12, "frames": 1, "mlp_n": 2048,
                  "rays": 512, "nav": NAV_SIZES["rehearsal"], "ref": REF_SIZES["rehearsal"],
                  "bg": BG_SIZES["rehearsal"], "dense_n": 256 * 32, "grid_n": 1536,
-                 "mesh_res": 32, "mip_m": 4099, "mip_rays": 64,
+                 "mesh_res": 32, "mip_m": 4099, "mip_rays": 64, "bwd_grid_n": 1031,
                  "clip": CLIP_WIDTHS["rehearsal"], "quickstart": QS_ARGS["rehearsal"]}
     else:
         if not torch.cuda.is_available():
@@ -3905,6 +4064,8 @@ def main():
                  "bg": BG_SIZES["card"], "dense_n": 4096 * 512,
                  # the grid path's largest point budget, 0.75 x 4096 rays x 64
                  "grid_n": 196608, "mesh_res": 256, "mip_m": MIP_M, "mip_rays": MIP_RAYS,
+                 # a grid step's MLP rows at a point budget of 0.25
+                 "bwd_grid_n": 65536,
                  "clip": CLIP_WIDTHS["card"], "quickstart": QS_ARGS["card"]}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3927,6 +4088,8 @@ def main():
     encode = encode_phase(device, sizes["dense_n"], sizes["grid_n"])
     mip = mip_phase(device, sizes["mip_m"])
     mip_path = mip_paths(device, sizes["mip_rays"])
+    mlp_bwd = {**mlp_backward_phase(device, sizes["dense_n"], sizes["bwd_grid_n"], timer),
+               **mlp_backward_paths(device, sizes)}
     if args.kernels_only:
         return
     cascade = cascade_phase(device)
@@ -3947,7 +4110,7 @@ def main():
              "bound_ms": mlp["bound_ms"], "bound_by": mlp["bound_by"],
              "library_ms": mlp["library_ms"], "train_launches_per_step": train_launches,
              "nav_launches": nav_launches, "cascade_disagreements": cascade, **ref_launches,
-             **{k: v for k, v in mlp.items() if k.startswith(("bg_", "mesh_"))},
+             **{k: v for k, v in mlp.items() if k.startswith(("bg_", "mesh_"))}, **mlp_bwd,
              **bg_launches, **opt_out, **train_opt_out, **viewer_out, **quickstart_out}
     hashgrid = {"name": "hashgrid", "route": "cuda",
                 "source": "nerfnav_tpu_torch/csrc/hashgrid.cu", "replaces": None,

@@ -33,6 +33,27 @@ _SIGNATURES = {
             ctypes.c_int,     # output activation id
             ctypes.c_void_p,  # cudaStream_t
         ],
+        "nerfnav_fused_mlp_backward_scratch": [
+            ctypes.c_int,     # N
+            ctypes.c_int,     # n_layers
+            ctypes.c_void_p,  # host array of n_layers + 1 widths
+            ctypes.c_void_p,  # out: host int64, the scratch floats the call needs
+        ],
+        "nerfnav_fused_mlp_backward": [
+            ctypes.c_void_p,  # x (N, D_in) float32
+            ctypes.c_void_p,  # g (N, D_out) float32
+            ctypes.c_void_p,  # host array of n_layers weight pointers, bf16
+            ctypes.c_void_p,  # dx (N, D_in) float32
+            ctypes.c_void_p,  # every dW, one after another, float32
+            ctypes.c_void_p,  # scratch float32
+            ctypes.c_longlong,  # scratch floats
+            ctypes.c_int,     # N
+            ctypes.c_int,     # n_layers
+            ctypes.c_void_p,  # host array of n_layers + 1 widths
+            ctypes.c_int,     # hidden activation id
+            ctypes.c_int,     # output activation id
+            ctypes.c_void_p,  # cudaStream_t
+        ],
     },
     "hashgrid": {
         "nerfnav_hashgrid_forward": [

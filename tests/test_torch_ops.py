@@ -30,6 +30,7 @@ from nerfnav_tpu_torch.ops import hashgrid as thg
 from nerfnav_tpu_torch.ops import morton as tmorton
 from nerfnav_tpu_torch.ops import spherical_harmonics as tsh
 from nerfnav_tpu_torch.training import checkpoint as tckpt
+from nerfnav_tpu_torch.utils import profiling
 from test_torch_march import _pack_blocks_np
 
 torch.set_num_threads(1)
@@ -218,6 +219,75 @@ def test_fused_mlp_rejects_what_the_kernel_cannot_take():
     dxj, (dwj,) = vjp(jnp.ones((4, 4)))
     np.testing.assert_array_equal(xg.grad.numpy(), _np(dxj))
     np.testing.assert_array_equal(w.grad.numpy(), _np(dwj))
+
+
+# the backward kernel's route: the nets the port builds take the kernel on a
+# CUDA tensor; wider nets and other hidden activations the plain backward
+BWD_NETS = {"sigma": ([32, 64, 16], "relu", True), "color": ([31, 64, 64, 3], "relu", True),
+            "bg": ([24, 64, 3], "relu", True), "8x128": ([128] * 9, "relu", False),
+            "3-256-256-1": ([3, 256, 256, 1], "relu", False),
+            "color-sigmoid": ([31, 64, 64, 3], "sigmoid", False)}
+
+
+def _counted_backward(x, ws, g, dims, act):
+    before = profiling.counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("test.mlp_backward"):
+            dx, dws = tfm._backward(x, ws, None, g, dims, act, "none")
+    assert dx.shape == x.shape and [d.shape for d in dws] == [w.shape for w in ws]
+    got = profiling.counters_since(before).get("test.mlp_backward", {})
+    return got.get("fused_mlp_bwd_kernel_calls", 0), got.get("fused_mlp_bwd_plain_calls", 0)
+
+
+@pytest.mark.parametrize("net", BWD_NETS)
+def test_fused_mlp_backward_route(net, monkeypatch):
+    """With the C launcher stubbed, a tensor off the CPU (on the meta
+    device, standing in for a CUDA one) takes the kernel for the sigma,
+    color and bg nets and the plain backward for a net wider than 64 or a
+    sigmoid hidden activation; a CPU tensor always takes the plain backward.
+    Each backward counts its route while tracing."""
+    dims, act, kernel = BWD_NETS[net]
+    assert tfm.backward_takes_kernel(dims, act) == kernel
+    launched = []
+
+    def launcher(x, wb, g, dims_, act_, out_act):
+        launched.append(list(dims_))
+        return torch.zeros_like(x), [torch.zeros(a, b, device=x.device)
+                                     for a, b in zip(dims_[:-1], dims_[1:])]
+
+    monkeypatch.setattr(tfm, "_launch_backward", launcher)
+    for device, counts in (("meta", (int(kernel), int(not kernel))), ("cpu", (0, 1))):
+        ws = [torch.zeros(a, b, device=device) for a, b in zip(dims[:-1], dims[1:])]
+        x, g = torch.zeros(8, dims[0], device=device), torch.zeros(8, dims[-1], device=device)
+        assert _counted_backward(x, ws, g, dims, act) == counts, device
+    assert launched == ([dims] if kernel else [])
+
+
+@pytest.mark.parametrize("net", ["sigma", "color", "bg"])
+def test_fused_mlp_backward_cpu_bits(net):
+    """On the CPU the backward is the plain recompute, bit for bit: the
+    same as `_mlp_backward` and, at 64 rows (where torch's and XLA's f32
+    sums take one order), as jax.vjp(fused_mlp_reference); zero rows take
+    relu's half gradient; nothing launches."""
+    dims, _, _ = BWD_NETS[net]
+    rng = np.random.default_rng(len(dims) * 10 + dims[0])
+    x = rng.normal(size=(64, dims[0])).astype(np.float32)
+    x[::7] = 0.0  # exact-zero pre-activations
+    ws = [(rng.uniform(-1, 1, size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(dims[:-1], dims[1:])]
+    g = rng.normal(size=(64, dims[-1])).astype(np.float32)
+    xt = torch.as_tensor(x).requires_grad_()
+    wt = [torch.as_tensor(w).requires_grad_() for w in ws]
+    before = tfm.fused_mlp.bwd_launches
+    (tfm.fused_mlp(xt, wt) * torch.as_tensor(g)).sum().backward()
+    assert tfm.fused_mlp.bwd_launches == before
+    dx, dws = tfm._mlp_backward(torch.as_tensor(x), [torch.as_tensor(w) for w in ws],
+                                torch.as_tensor(g), "relu", "none")
+    _, vjp = jax.vjp(jfm.fused_mlp_reference, jnp.asarray(x), [jnp.asarray(w) for w in ws])
+    dxj, dwj = vjp(jnp.asarray(g))
+    for got, plain, want in zip([xt.grad, *[w.grad for w in wt]], [dx, *dws], [dxj, *dwj]):
+        np.testing.assert_array_equal(got.numpy(), plain.numpy())
+        np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
 def test_morton_packing_exact():
